@@ -1,0 +1,116 @@
+"""Fused BEV hole fill + hallucination mask (kernel B2).
+
+Port of salve_tpu/ops/pallas_fill.py:fill_and_mask_batched and of its
+oracle, salve_tpu/ops/bev.py:fill_holes + hallucination_mask, with the
+kernel as `csrc/fill.cu`.
+
+The plain version sums with exact shifted adds in the add order of
+pallas_fill.py:_box_sum, never with `F.conv2d`: a float32 cuDNN convolution
+runs in TF32 by default, the same trap as the TPU's bf16 conv passes
+(bev.py:63-66). With that order the kernel, the plain version and the JAX
+package agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from salve_tpu_torch import device as device_mod
+from salve_tpu_torch.ops import kernels
+
+# salve_tpu/ops/bev.py:45-50.
+DEFAULT_MASK_KERNEL = 11
+FILL_ITERS = 6
+
+
+def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """Zero-padded shift of (..., H, W) planes: out[y, x] = x[y - dy, x - dx]."""
+    h, w = x.shape[-2:]
+    out = torch.zeros_like(x)
+    ys, yd = (slice(0, h - dy), slice(dy, h)) if dy >= 0 else (slice(-dy, h), slice(0, h + dy))
+    xs, xd = (slice(0, w - dx), slice(dx, w)) if dx >= 0 else (slice(-dx, w), slice(0, w + dx))
+    out[..., yd, xd] = x[..., ys, xs]
+    return out
+
+
+def box_sum(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Separable k x k box sum of (..., H, W) planes, zero-padded.
+
+    Rows first, ((x + x[y-1]) + x[y+1]) + ..., then columns the same way —
+    the order of salve_tpu/ops/pallas_fill.py:_box_sum.
+    """
+    r = k // 2
+    rows = x
+    for d in range(1, r + 1):
+        rows = rows + _shift(x, d, 0) + _shift(x, -d, 0)
+    out = rows
+    for d in range(1, r + 1):
+        out = out + _shift(rows, 0, d) + _shift(rows, 0, -d)
+    return out
+
+
+def support_mask(support: torch.Tensor, k: int = DEFAULT_MASK_KERNEL) -> torch.Tensor:
+    """(..., H, W) bool: cells with >= 1 support cell in their k x k window."""
+    return box_sum(support.to(torch.float32), k) > 0.5
+
+
+def fill_and_mask_plain(
+    sparse: torch.Tensor, occupied: torch.Tensor, support: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of B2: (B, H, W, 3) f32, (B, H, W) bool x2 -> (B, H, W, 3)."""
+    img = sparse.permute(0, 3, 1, 2).to(torch.float32)  # (B, 3, H, W)
+    o = occupied.to(torch.float32)[:, None]  # (B, 1, H, W)
+    for _ in range(FILL_ITERS):
+        den = box_sum(o, 3)
+        num = box_sum(img * o, 3)
+        fill = num / torch.clamp(den, min=1.0)
+        new_o = torch.clamp(den, 0.0, 1.0)
+        img = torch.where(o > 0, img, fill)
+        o = torch.maximum(o, new_o)
+    mask = support_mask(support)[:, None]
+    out = torch.where(mask, img, torch.zeros_like(img))
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def fill_and_mask_cuda(
+    sparse: torch.Tensor, occupied: torch.Tensor, support: torch.Tensor
+) -> torch.Tensor:
+    """Launch B2 on the card; raises on anything but contiguous CUDA input."""
+    device_mod.require_cuda_tensor("sparse", sparse, torch.float32)
+    device_mod.require_cuda_tensor("occupied", occupied, torch.bool)
+    device_mod.require_cuda_tensor("support", support, torch.bool)
+    if sparse.dim() != 4 or sparse.shape[-1] != 3:
+        raise ValueError(f"sparse must be (B, H, W, 3), got {tuple(sparse.shape)}")
+    b, h, w, _ = sparse.shape
+    if occupied.shape != (b, h, w) or support.shape != (b, h, w):
+        raise ValueError("occupied and support must be (B, H, W) like sparse")
+    if b > 65535:  # the batch is the launch grid's z extent
+        raise ValueError(f"at most 65535 images a launch, got {b}")
+    out = torch.empty_like(sparse)
+    lib = kernels.load().lib
+    err = lib.salve_fill_mask(
+        sparse.data_ptr(), occupied.data_ptr(), support.data_ptr(), out.data_ptr(),
+        b, h, w, kernels.stream_handle(),
+    )
+    kernels.check(err, "fill")
+    device_mod.LAUNCHES["fill"] += 1
+    return out
+
+
+def fill_and_mask(
+    sparse: torch.Tensor, occupied: torch.Tensor, support: torch.Tensor
+) -> torch.Tensor:
+    """Hole fill + hallucination mask of a batch, any batch and grid size.
+
+    Args:
+        sparse: (B, H, W, 3) float32 splatted colours.
+        occupied: (B, H, W) bool splat occupancy.
+        support: (B, H, W) bool, all three u8-quantized channels > 0.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches B2.
+    """
+    if sparse.device.type == "cpu":
+        return fill_and_mask_plain(sparse, occupied, support)
+    if sparse.device.type == "cuda":
+        return fill_and_mask_cuda(sparse, occupied, support)
+    raise ValueError(f"unsupported device {sparse.device}")
