@@ -10,19 +10,29 @@ Phases:
   1. build the three CUDA kernels from `salve_tpu_torch/csrc` (timed);
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (4 synthetic 512x1024 panos; 501^2 renders, 1001^2
-     warp banks, 32 hypotheses): B1 splat, B2 fill + mask and B3 shear warp
-     must agree exactly;
+     warp banks, 32 hypotheses): B1 splat, B2 fill + mask (also 32x501^2,
+     the direct-mode batch, an odd 3x37x53, all-empty and all-occupied
+     images, and B2's quotient against IEEE division for every float
+     numerator) and B3 shear warp through the ceiling+floor pair entry (8
+     hypotheses in each rot90 branch, and bank rows outside the bank) must
+     agree exactly;
   3. run `score_floor_hypotheses` at full width (ResNet-152 early-fusion
      verifier with seeded random weights, resize 234 / crop 224, bf16,
      batch 32): 2560 hypotheses in warp mode, then 1024 in direct mode, each
-     with the launch counts zeroed just before and read just after; then a
+     with the launch counts zeroed just before and read just after (warp
+     mode must launch B3 once a batch, for both surfaces); then a
      small-input check of the card's path against the port's plain CPU
      path, and the median ms of the warp-mode path's parts (banks, one
      score batch, the verifier alone);
-  4. time each kernel, its plain version and (B1) the library call,
-     median of CUDA-event timings, beside the bound computed from this
-     run's inputs; for B1 also the L2-atomic bound, from the atomicMax rate
-     this card shows into a grid of the same size.
+  4. time each kernel (device time: a sleep kernel fills the queue ahead of
+     each timed round), its plain version and (B1) the library call doing
+     the same work (the grid fill and one scatter_reduce_ with rejected
+     points sent to a sentinel cell), median of CUDA-event timings, beside
+     the bound computed from this run's inputs; for B1 also the L2-atomic
+     bound, from the atomicMax rate this card shows into a grid of the same
+     size; B2 at 4x1001^2 and 32x501^2; B3 per surface in each rot90 branch,
+     and with the L2 flushed before each launch (outside the timed window),
+     as the verifier leaves it between batches.
 
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -48,6 +58,8 @@ FILL_OPS_PER_CELL = 6 * (17 + 15) + 22
 # more, so the per-floor banks and host jitter do not set the rate.
 N_WARP_HYPS = 2560
 N_DIRECT_HYPS = 1024
+# Cycles of the sleep kernel queued ahead of a timed round (about 6 ms).
+SLEEP_CYCLES = 10_000_000
 # Atomics of one L2-rate probe launch (csrc/splat.cu:salve_l2_atomic_probe).
 PROBE_ATOMICS = 1 << 26
 
@@ -75,11 +87,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, rounds: int = 5, per_round: int = 10, warmup: int = 2) -> float:
+def time_ms(fn, rounds: int = 5, per_round: int = 10, warmup: int = 2, prefill: bool = True) -> float:
     """Median over `rounds` of the mean ms of `per_round` back-to-back calls.
 
-    CUDA events bracket each round, so the card's queue stays full and a slow
-    host adds no idle gaps between the events of a single short call.
+    CUDA events bracket each round. With `prefill`, each round first queues
+    a sleep kernel of about 6 ms (outside the events), so the host enqueues
+    the calls while the card waits and the events see the card's time alone,
+    not the wrapper's Python; without it a slow host can add gaps.
     """
     import torch
 
@@ -90,6 +104,8 @@ def time_ms(fn, rounds: int = 5, per_round: int = 10, warmup: int = 2) -> float:
     for _ in range(rounds):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if prefill:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         for _ in range(per_round):
             fn()
@@ -129,7 +145,7 @@ def run(dev) -> dict:
     from salve_tpu_torch.dataset.synthetic_bank import make_synthetic_pano_bank
     from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet
     from salve_tpu_torch.ops import bev, fill, kernels, splat, warp
-    from salve_tpu_torch.ops.backproject import FLOOR_Z_RANGE
+    from salve_tpu_torch.ops.backproject import CEILING_Z_RANGE, FLOOR_Z_RANGE
     from salve_tpu_torch.pipeline.fused_inference import score_floor_hypotheses
     from salve_tpu_torch.rendering.bev_pair import BEVRenderConfig, surface_clouds
     from salve_tpu_torch.training.config import TrainingConfig
@@ -167,9 +183,7 @@ def run(dev) -> dict:
             raise AssertionError("B1 splat disagrees with its plain version")
         err["splat"] = max(err["splat"], e)
 
-        sparse, occ = splat.splat_zorder_batched(xy_img, z, rgb255, valid, side, side, quantize_u8=True)
-        support = (torch.clamp(torch.round(sparse), 0, 255) > 0).all(dim=-1)
-        sparse, occ, support = sparse.contiguous(), occ.contiguous(), support.contiguous()
+        sparse, occ, support = fill_inputs(bev, splat, xyz, c, v, px, render_cfg.meters_per_px)
         got = fill.fill_and_mask(sparse, occ, support)
         ref = fill.fill_and_mask_plain(sparse, occ, support)
         e = max_abs_diff(got, ref)
@@ -179,34 +193,59 @@ def run(dev) -> dict:
         err["fill"] = max(err["fill"], e)
         timing_inputs[px] = (cell, key, ok, sparse, occ, support)
 
-    ext = warp.pack_rgb888(
-        warp.render_identity_bank_extended(depths, rgbs, FLOOR_Z_RANGE, render_cfg, bank_px)
-    ).contiguous()
     rng = np.random.default_rng(1)
-    th = rng.uniform(-np.pi, np.pi, batch)
-    R = torch.as_tensor(np.stack(
-        [np.stack([np.cos(th), -np.sin(th)], -1), np.stack([np.sin(th), np.cos(th)], -1)], 1
-    ).astype(np.float32), device=dev)
-    t = torch.as_tensor(rng.uniform(-3, 3, (batch, 2)).astype(np.float32), device=dev)
-    idx = torch.as_tensor(rng.integers(0, n_panos, batch), device=dev)
+    # The direct-mode batch: 32 hypothesis clouds of pano 1 moved into the
+    # partner's frame, as rendering/bev_pair.py:render_transformed_batched.
+    R, t, idx = random_hypotheses(rng, batch, n_panos, dev)
+    xyz32, c32, v32 = surface_clouds(depths[idx], rgbs[idx], FLOOR_Z_RANGE, render_cfg)
+    xt = R[:, None, 0, 0] * xyz32[..., 0] + R[:, None, 0, 1] * xyz32[..., 1] + 1.5 * t[:, None, 0]
+    yt = R[:, None, 1, 0] * xyz32[..., 0] + R[:, None, 1, 1] * xyz32[..., 1] + 1.5 * t[:, None, 1]
+    xyz32 = torch.stack([xt, yt, xyz32[..., 2]], dim=-1)
+    timing_inputs["direct"] = fill_inputs(bev, splat, xyz32, c32, v32, img_px, render_cfg.meters_per_px)
+    odd = {"3x37x53": random_fill_inputs(rng, 3, 37, 53, 0.05, dev),
+           "empty 2x64x96": random_fill_inputs(rng, 2, 64, 96, 0.0, dev),
+           "occupied 2x64x96": random_fill_inputs(rng, 2, 64, 96, 1.0, dev)}
+    for name, args in [(f"{batch}x{img_px + 1}^2 (direct-mode batch)", timing_inputs["direct"]), *odd.items()]:
+        got, ref = fill.fill_and_mask(*args), fill.fill_and_mask_plain(*args)
+        e = max_abs_diff(got, ref)
+        log(f"phase 2: B2 fill {name}: max |diff| {e}")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"B2 fill+mask disagrees with its plain version at {name}")
+        err["fill"] = max(err["fill"], e)
+    mismatches = torch.zeros(1, dtype=torch.int64, device=dev)
+    kernels.check(lib.lib.salve_fill_div_check(mismatches.data_ptr(), kernels.stream_handle()), "div check")
+    log(f"phase 2: B2 quotient vs IEEE division, every finite float numerator from 2^-125 and den 2..9: "
+        f"{int(mismatches)} mismatches")
+    if int(mismatches):
+        raise AssertionError("B2's quotient differs from IEEE division")
+
+    banks = tuple(warp.pack_rgb888(
+        warp.render_identity_bank_extended(depths, rgbs, zr, render_cfg, bank_px)
+    ).contiguous() for zr in (CEILING_Z_RANGE, FLOOR_Z_RANGE))
+    ext = banks[1]
+    # 8 hypotheses in each rot90 branch; then two bank rows outside the bank.
+    R, t, idx = random_hypotheses(rng, batch, n_panos, dev, branches=np.arange(batch) % 4)
     params = warp.shear_warp_params(R, t, ext.shape[1], img_px, render_cfg.meters_per_px)
-    got = warp.shear_warp(ext, idx, params)
-    ref = warp.shear_warp_plain(ext, idx, params)
-    e = max_abs_diff(got, ref)
-    log(f"phase 2: B3 warp {batch} hypotheses {ext.shape[1]}^2 -> {params.d}^2: max |diff| {e}, "
-        f"rot90 counts {torch.bincount(params.n.long(), minlength=4).tolist()}")
-    if not torch.equal(got, ref):
-        raise AssertionError("B3 shear warp disagrees with its plain version")
-    err["warp"] = e
-    # Bank rows outside [0, P) read as empty pages in both versions.
+    counts = torch.bincount(params.n.long(), minlength=4).tolist()
+    if min(counts) < 8:
+        raise AssertionError(f"rot90 branches {counts}: fewer than 8 hypotheses in one")
     idx_out = idx.clone()
     idx_out[:2] = torch.tensor([-1, n_panos], device=dev)
-    got = warp.shear_warp(ext, idx_out, params)
-    if not torch.equal(got, warp.shear_warp_plain(ext, idx_out, params)) or got[:2].any():
-        raise AssertionError("B3 and its plain version disagree on rows outside the bank")
-    log("phase 2: B3 warp reads rows outside the bank as empty, as its plain version does")
-    # Bank reads this run's data needs: outputs whose pass chain lands in the source.
-    n_reads = int((warp.shear_warp_plain(torch.ones_like(ext), idx, params)[..., 2] > 0).sum())
+    for rows, what in ((idx, "bank rows"), (idx_out, "two rows outside the bank")):
+        got = warp.warp_banks_auto(banks, R, t, img_px, render_cfg.meters_per_px, bank_idx=rows)
+        for surface, g, bank in zip(("ceiling", "floor"), got, banks):
+            ref = warp.shear_warp_plain(bank, rows, params)
+            for n in range(4):
+                sel = params.n == n
+                e = max_abs_diff(g[sel], ref[sel])
+                log(f"phase 2: B3 warp pair entry, {surface}, {what}, rot90^{n} ({int(sel.sum())} "
+                    f"hypotheses, {ext.shape[1]}^2 -> {params.d}^2): max |diff| {e}")
+                err["warp"] = max(err["warp"], e)
+            if not torch.equal(g, ref):
+                raise AssertionError(f"B3 pair entry disagrees with the plain version ({surface}, {what})")
+        if rows is idx_out and got[0][:2].any():
+            raise AssertionError("B3 read a row outside the bank")
+    timing_inputs["warp"] = (banks, R, t, idx, params)
 
     # -- Phase 3: the main path ----------------------------------------------
     cfg = TrainingConfig(num_layers=152, resize_h=234, resize_w=234, train_h=224, train_w=224, batch_size=batch,
@@ -246,6 +285,10 @@ def run(dev) -> dict:
     for k in ("splat", "fill", "warp"):
         if runs["warp"]["launches"][k] == 0:
             raise AssertionError(f"warp mode never launched {k}")
+    n_batches = -(-N_WARP_HYPS // batch)
+    if runs["warp"]["launches"]["warp"] != n_batches:
+        raise AssertionError(f"warp mode launched B3 {runs['warp']['launches']['warp']} times "
+                             f"for {n_batches} batches: not once a batch for both surfaces")
     check_small_input(dev)
     report["breakdown"] = time_breakdown(model, cfg, render_cfg, depths, rgbs, hyps[:batch], dev)
     log("phase 3: warp mode, median ms: " + ", ".join(
@@ -256,15 +299,21 @@ def run(dev) -> dict:
     side = bank_px + 1
     b, n = cell.shape
     hw = side * side
-    flat = (torch.arange(b, device=dev)[:, None] * hw + cell.long())[ok]
-    src = key[ok]
-    lib_grid = torch.full((b * hw,), -1, dtype=torch.int32, device=dev)
+    # The library call on equal work: the grid fill and one scatter_reduce_,
+    # rejected points sent to a sentinel cell a row (inputs masked beforehand).
+    lib_idx = torch.where(ok, cell.long(), torch.full_like(cell, hw, dtype=torch.long))
+    lib_src = torch.where(ok, key, torch.full_like(key, -1))
+
+    def library_splat():
+        grid = torch.full((b, hw + 1), -1, dtype=torch.int32, device=dev)
+        return grid.scatter_reduce_(1, lib_idx, lib_src, "amax", include_self=True)
+
     k = report["kernels"]
     k["splat"] = {
         "shape": f"{b}x{n} points -> {b}x{side}^2 grid",
         "ms": time_ms(lambda: splat.splat_priority_grid(cell, key, ok, side, side)),
         "plain_ms": time_ms(lambda: splat.splat_priority_grid_plain(cell, key, ok, side, side)),
-        "library_ms": time_ms(lambda: lib_grid.scatter_reduce_(0, flat, src, "amax", include_self=True)),
+        "library_ms": time_ms(library_splat),
         "bound_ms": (b * n * 9 + b * hw * 4) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
     }
@@ -277,24 +326,36 @@ def run(dev) -> dict:
     log(f"phase 4: L2 atomicMax rate into a {b}x{side}^2 grid: "
         + ", ".join(f"{p} {r:.4e}/s" for p, r in rates.items())
         + f"; {accepted} accepted points -> L2 bound {k['splat']['l2_bound_ms']:.4f} ms")
-    cells = sparse.shape[0] * sparse.shape[1] * sparse.shape[2]
-    k["fill"] = {
-        "shape": f"{sparse.shape[0]}x{side}^2x3",
-        "ms": time_ms(lambda: fill.fill_and_mask(sparse, occ, support)),
-        "plain_ms": time_ms(lambda: fill.fill_and_mask_plain(sparse, occ, support)),
-        "library_ms": None,
-    }
-    f_bytes, f_ops = cells * 26 / HBM_BYTES_PER_S, cells * FILL_OPS_PER_CELL / FP32_OPS_PER_S
-    k["fill"].update(bound_ms=max(f_bytes, f_ops) * 1e3, bound_by="bytes" if f_bytes >= f_ops else "operations")
-    d = params.d
-    w_bytes = batch * d * d * 3 + n_reads * 4 + batch * (params.y2 + params.x3 + d + 2) * 4 + batch * 8
+
+    def fill_row(args):
+        cells = args[0].shape[0] * args[0].shape[1] * args[0].shape[2]
+        f_bytes, f_ops = cells * 26 / HBM_BYTES_PER_S, cells * FILL_OPS_PER_CELL / FP32_OPS_PER_S
+        return {
+            "shape": "x".join(str(x) for x in args[0].shape),
+            "ms": time_ms(lambda: fill.fill_and_mask(*args)),
+            "plain_ms": time_ms(lambda: fill.fill_and_mask_plain(*args)),
+            "library_ms": None,
+            "bound_ms": max(f_bytes, f_ops) * 1e3,
+            "bound_by": "bytes" if f_bytes >= f_ops else "operations",
+        }
+
+    k["fill"] = fill_row((sparse, occ, support))
+    k["fill"]["extra"] = {"direct_batch": fill_row(timing_inputs["direct"])}
+    log(f"phase 4: fill at the direct-mode batch {k['fill']['extra']['direct_batch']}")
+
+    # B3: one pair launch (ceiling + floor) as score_batch makes it; then per
+    # surface in each rot90 branch, with the L2 warm and flushed.
+    banks, R, t, idx, params = timing_inputs["warp"]
+    mpp = render_cfg.meters_per_px
     k["warp"] = {
-        "shape": f"{batch}x{ext.shape[1]}^2 bank rows -> {batch}x{d}^2x3",
-        "ms": time_ms(lambda: warp.shear_warp(ext, idx, params)),
-        "plain_ms": time_ms(lambda: warp.shear_warp_plain(ext, idx, params)),
+        "shape": f"2 banks x {batch} rows of {ext.shape[1]}^2 -> 2x{batch}x{params.d}^2x3",
+        "ms": time_ms(lambda: warp.shear_warp_cuda(banks, idx, params)),
+        "params_ms": time_ms(lambda: warp.shear_warp_params(R, t, ext.shape[1], img_px, mpp)),
+        "plain_ms": time_ms(lambda: [warp.shear_warp_plain(bk, idx, params) for bk in banks]),
         "library_ms": None,
-        "bound_ms": w_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": 2 * warp_bound_ms(warp, ext, idx, params),
         "bound_by": "bytes",
+        "extra": warp_branch_times(warp, banks, img_px, mpp, rng, n_panos, dev),
     }
     for name, row in k.items():
         row.update(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
@@ -302,9 +363,102 @@ def run(dev) -> dict:
                    launches_direct=runs["direct"]["launches"][name],
                    max_abs_err=err[name])
         log(f"phase 4: {name}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']})")
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, library {row['library_ms']})")
     report["runs"] = runs
     return report
+
+
+def random_hypotheses(rng, n: int, n_panos: int, dev, branches=None):
+    """(R, t, bank rows) of n random hypotheses; `branches`, if given, holds
+    the rot90 branch of the shear warp that each is to take (an angle within
+    40 deg of that multiple of -90 deg)."""
+    import numpy as np
+    import torch
+
+    th = rng.uniform(-np.pi, np.pi, n)
+    if branches is not None:
+        th = np.deg2rad(rng.uniform(-40, 40, n) - 90.0 * np.asarray(branches))
+    R = np.stack([np.stack([np.cos(th), -np.sin(th)], -1), np.stack([np.sin(th), np.cos(th)], -1)], 1)
+    return (torch.as_tensor(R.astype(np.float32), device=dev),
+            torch.as_tensor(rng.uniform(-3, 3, (n, 2)).astype(np.float32), device=dev),
+            torch.as_tensor(rng.integers(0, n_panos, n), device=dev))
+
+
+def fill_inputs(bev, splat, xyz, c, v, px: int, meters_per_px: float):
+    """B2's (sparse, occupied, support) for clouds on a (px+1)^2 grid, as
+    ops/bev.py:render_bev_images_batched makes them."""
+    import torch
+
+    side = px + 1
+    xy_img, z, rgb255, valid = bev.splat_inputs(xyz, c, v, px, meters_per_px)
+    sparse, occ = splat.splat_zorder_batched(xy_img, z, rgb255, valid, side, side, quantize_u8=True)
+    support = (torch.clamp(torch.round(sparse), 0, 255) > 0).all(dim=-1)
+    return sparse.contiguous(), occ.contiguous(), support.contiguous()
+
+
+def random_fill_inputs(rng, b: int, h: int, w: int, density: float, dev):
+    """B2 inputs of u8 colours at a given share of occupied cells."""
+    import numpy as np
+    import torch
+
+    hit = rng.uniform(size=(b, h, w, 1)) < density
+    sparse = np.where(hit, rng.integers(0, 256, (b, h, w, 3)), 0).astype(np.float32)
+    return (torch.as_tensor(sparse, device=dev), torch.as_tensor(hit[..., 0], device=dev),
+            torch.as_tensor((sparse > 0).all(-1), device=dev))
+
+
+def warp_bound_ms(warp, bank, idx, params) -> float:
+    """B3's least time for one bank: its u8 output, the bank words this run's
+    data reads (outputs whose pass chain lands in the source) and the
+    parameters, over the HBM rate."""
+    import torch
+
+    n_reads = int((warp.shear_warp_plain(torch.ones_like(bank), idx, params)[..., 2] > 0).sum())
+    b, d = idx.shape[0], params.d
+    return (b * d * d * 3 + n_reads * 4 + b * (params.y2 + params.x3 + d + 2) * 4 + b * 8) / HBM_BYTES_PER_S * 1e3
+
+
+def cold_l2_ms(fn, flush, n: int = 11) -> float:
+    """Median ms of single calls of `fn`, each after `flush` (a buffer larger
+    than the L2) was overwritten, outside the events; a short sleep kernel
+    ahead of each call keeps the host out of the timed window."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES // 10)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def warp_branch_times(warp, banks, img_px: int, mpp: float, rng, n_panos: int, dev) -> dict:
+    """B3 ms per surface for 32 hypotheses all in one rot90 branch: half a
+    pair launch, one single-bank launch, and one single-bank launch with the
+    L2 flushed just before it."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    out = {}
+    for n in range(4):
+        R, t, idx = random_hypotheses(rng, 32, n_panos, dev, branches=[n] * 32)
+        params = warp.shear_warp_params(R, t, banks[0].shape[1], img_px, mpp)
+        if not bool((params.n == n).all()):
+            raise AssertionError(f"hypotheses meant for rot90^{n} took {params.n.tolist()}")
+        row = {
+            "pair_ms_per_surface": time_ms(lambda: warp.shear_warp_cuda(banks, idx, params)) / 2,
+            "single_ms": time_ms(lambda: warp.shear_warp(banks[1], idx, params)),
+            "single_cold_l2_ms": cold_l2_ms(lambda: warp.shear_warp(banks[1], idx, params), flush),
+            "bound_ms": warp_bound_ms(warp, banks[1], idx, params),
+        }
+        out[f"rot90^{n}"] = row
+        log(f"phase 4: warp rot90^{n}, per surface: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+    return out
 
 
 def l2_atomic_rates(lib, cells: int, dev) -> dict:
@@ -343,10 +497,10 @@ def time_breakdown(model, cfg, render_cfg, depths, rgbs, hyps, dev) -> dict:
               for _ in range(4)]
     with torch.no_grad():
         return {
-            "banks_per_floor": time_ms(lambda: build_banks(depths, rgbs, render_cfg, True)),
+            "banks_per_floor": time_ms(lambda: build_banks(depths, rgbs, render_cfg, True), prefill=False),
             "score_batch": time_ms(
-                lambda: score_batch(model, cfg, render_cfg, True, *banks, i1, i2, R, t)),
-            "verifier_alone": time_ms(lambda: model(images)),
+                lambda: score_batch(model, cfg, render_cfg, True, *banks, i1, i2, R, t), prefill=False),
+            "verifier_alone": time_ms(lambda: model(images), prefill=False),
         }
 
 
@@ -415,7 +569,8 @@ def main() -> int:
     log(f"throughput: warp mode per score batch {report['batch'] * 1e3 / bd['score_batch']:.2f} hypotheses/s; "
         f"the banks cost {bd['banks_per_floor']:.3f} ms once per floor")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "launches_direct", "shape")
+            "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "params_ms", "launches_direct", "shape",
+            "extra")
     rows = [{kk: row.get(kk) for kk in keys} for row in report["kernels"].values()]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -84,9 +84,9 @@ def fill_and_mask_cuda(
     b, h, w, _ = sparse.shape
     if occupied.shape != (b, h, w) or support.shape != (b, h, w):
         raise ValueError("occupied and support must be (B, H, W) like sparse")
-    if b > 65535:  # the batch is the launch grid's z extent
-        raise ValueError(f"at most 65535 images a launch, got {b}")
-    out = torch.empty_like(sparse)
+    if sparse.data_ptr() % 16:  # the kernel reads colour rows as 16-byte vectors
+        raise ValueError("sparse must start on a 16-byte boundary")
+    out = torch.empty_like(sparse)  # a fresh allocation: 16-byte aligned
     lib = kernels.load().lib
     err = lib.salve_fill_mask(
         sparse.data_ptr(), occupied.data_ptr(), support.data_ptr(), out.data_ptr(),

@@ -1,14 +1,16 @@
 """Build and load the hand-written Hopper kernels (`salve_tpu_torch/csrc`).
 
-Route: each `.cu` source is compiled by `nvcc` for `sm_90a` into an object,
-all sources at once in parallel, and the objects are linked into one shared
-library with a plain C interface, loaded with `ctypes`. Nothing includes
-PyTorch's headers, so a build takes seconds. The library lands in
-`build/salve_tpu_torch/<hash of the sources>/` beside the package (a
-directory `.gitignore` lists), so editing a source rebuilds on first use and
-an unchanged tree reuses its build.
+Route: every `.cu` file under `csrc/` is compiled by `nvcc` for `sm_90a`
+into an object, all at once in parallel, and the objects are linked into one
+shared library with a plain C interface, loaded with `ctypes`. Nothing
+includes PyTorch's headers, so a build takes seconds. The library lands in
+`build/salve_tpu_torch/<hash>/` beside the package (a directory `.gitignore`
+lists). The hash covers every file under `csrc/` (headers included) and the
+flags, so editing any of them rebuilds on first use and an unchanged tree
+reuses its build.
 
-No `--use_fast_math`: the fill kernel relies on IEEE division.
+No `--use_fast_math`: the fill kernel's bit-exactness rests on IEEE-rounded
+adds, products and quotients.
 
 Nothing here runs at import: the CPU tests import every module, and a
 build needs `nvcc` and a card.
@@ -31,7 +33,6 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "salve_tpu_torch"
-SOURCES = ("splat.cu", "fill.cu", "warp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,7 +45,8 @@ _SIGNATURES = {
     "salve_splat_max": [_P, _P, _P, _P, _I, _I, _I, _P],
     "salve_l2_atomic_probe": [_P, _L, _L, _L, _P],
     "salve_fill_mask": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "salve_shear_warp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "salve_fill_div_check": [_P, _P],
+    "salve_shear_warp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -69,11 +71,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def sources() -> list:
+    """The translation units: every `.cu` file under `csrc/`, by name."""
+    return sorted(p.name for p in CSRC.glob("*.cu"))
+
+
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(CSRC)).encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -84,7 +91,7 @@ def _build(out_dir: Path) -> tuple:
     tmp = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
     procs = []
-    for name in SOURCES:
+    for name in sources():
         obj = tmp / (Path(name).stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
         procs.append((name, obj, subprocess.Popen(

@@ -9,14 +9,14 @@ Two warps, as in the JAX package:
   * `warp_bank_sim2_shear` — the 3-shear (Paeth) factorization, NN-rounded
     per pass; its CUDA kernel is `csrc/warp.cu` (replacing
     salve_tpu/ops/pallas_warp.py:warp_bank_sim2_shear_pallas_v2).
-`warp_bank_auto` dispatches like JAX's: the shear kernel on the card, the
-NN gather on the CPU.
+`warp_banks_auto` dispatches like JAX's: the shear kernel on the card (one
+launch for a batch's ceiling and floor banks), the NN gather on the CPU.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -166,12 +166,15 @@ def _shear_params(i2Ri1, i2ti1_scaled, src_half_m, dst_half_m, meters_per_px):
 
 
 def _q_center_correction(n, phi, c):
-    """b2 term from rotating the target grid about its center c = (D-1)/2."""
-    table = torch.tensor(
-        [[0.0, 0.0], [-2.0, 0.0], [-2.0, -2.0], [0.0, -2.0]],
-        dtype=torch.float32, device=phi.device,
-    ) * c
-    qc = table[n.long()]
+    """b2 term from rotating the target grid about its center c = (D-1)/2.
+
+    The table [[0, 0], [-2, 0], [-2, -2], [0, -2]] * c of n, built with
+    selects on the device (a host-made table would be a blocking copy)."""
+    zero = torch.zeros((), dtype=torch.float32, device=phi.device)
+    m2c = torch.full((), -2.0 * c, dtype=torch.float32, device=phi.device)
+    qc = torch.stack(
+        [torch.where((n == 1) | (n == 2), m2c, zero), torch.where((n == 2) | (n == 3), m2c, zero)], dim=-1
+    )
     cos, sin = torch.cos(phi), torch.sin(phi)
     return torch.stack(
         [cos * qc[..., 0] - sin * qc[..., 1], sin * qc[..., 0] + cos * qc[..., 1]], dim=-1
@@ -265,37 +268,52 @@ def shear_warp_plain(
     return unpack_rgb888(torch.flip(outp, dims=[1]))
 
 
-def shear_warp_cuda(
-    bank: torch.Tensor, bank_idx: torch.Tensor, p: ShearParams
-) -> torch.Tensor:
+def shear_warp_cuda(banks, bank_idx: torch.Tensor, p: ShearParams):
     """Launch B3 on the card; raises on anything but contiguous CUDA input.
 
+    `banks` is one (P, S, S) bank, or a tuple of up to two banks of one shape
+    (a batch's ceiling and floor) warped by the same rows and parameters in
+    one launch; the result is one (B, d, d, 3) uint8 tensor, or a tuple.
     A bank row outside [0, P) reads as an empty page, as in the plain
     version; the rows are not checked on the host, which would synchronise.
     """
-    device_mod.require_cuda_tensor("bank", bank, torch.int32)
+    single = isinstance(banks, torch.Tensor)
+    banks = (banks,) if single else tuple(banks)
+    if not 1 <= len(banks) <= 2:
+        raise ValueError(f"one launch warps one or two banks, got {len(banks)}")
+    for k, bank in enumerate(banks):
+        device_mod.require_cuda_tensor(f"bank {k}", bank, torch.int32)
+        if bank.shape != banks[0].shape:
+            raise ValueError(f"banks differ in shape: {tuple(bank.shape)} vs {tuple(banks[0].shape)}")
     device_mod.require_cuda_tensor("bank_idx", bank_idx, torch.int64)
     for name in ("n", "row0", "starts1", "starts2", "starts3"):
         device_mod.require_cuda_tensor(name, getattr(p, name), torch.int32)
+    bank = banks[0]
     if bank.dim() != 3 or bank.shape[1] != bank.shape[2]:
         raise ValueError(f"bank must be (P, S, S), got {tuple(bank.shape)}")
     b = bank_idx.shape[0]
+    if b > 65535:  # the batch is the launch grid's z extent
+        raise ValueError(f"at most 65535 hypotheses a launch, got {b}")
     if (
         p.n.shape != (b,) or p.row0.shape != (b,) or p.starts1.shape != (b, p.y2)
         or p.starts2.shape != (b, p.x3) or p.starts3.shape != (b, p.d)
     ):
         raise ValueError("shear parameters do not match the batch")
     s = bank.shape[-1]
-    out = torch.empty((b, p.d, p.d, 3), dtype=torch.uint8, device=bank.device)
+    outs = tuple(
+        torch.empty((b, p.d, p.d, 3), dtype=torch.uint8, device=bank.device) for _ in banks
+    )
+    second = banks[-1]
     lib = kernels.load().lib
     err = lib.salve_shear_warp(
-        bank.data_ptr(), bank_idx.data_ptr(), p.n.data_ptr(), p.row0.data_ptr(),
-        p.starts1.data_ptr(), p.starts2.data_ptr(), p.starts3.data_ptr(), out.data_ptr(),
+        bank.data_ptr(), second.data_ptr(), bank_idx.data_ptr(), p.n.data_ptr(),
+        p.row0.data_ptr(), p.starts1.data_ptr(), p.starts2.data_ptr(), p.starts3.data_ptr(),
+        outs[0].data_ptr(), outs[-1].data_ptr(), len(banks),
         b, bank.shape[0], s, p.d, p.x3, p.y2, kernels.stream_handle(),
     )
     kernels.check(err, "warp")
     device_mod.LAUNCHES["warp"] += 1
-    return out
+    return outs[0] if single else outs
 
 
 def shear_warp(bank: torch.Tensor, bank_idx: torch.Tensor, p: ShearParams) -> torch.Tensor:
@@ -329,6 +347,34 @@ def warp_bank_sim2_shear(
     return shear_warp_plain(bank, rows, p)
 
 
+def warp_banks_auto(
+    banks: Sequence[torch.Tensor],
+    i2Ri1: torch.Tensor,
+    i2ti1_scaled: torch.Tensor,
+    dst_img_px: int = DEFAULT_BEV_IMG_PX,
+    meters_per_px: float = DEFAULT_METERS_PER_PX,
+    bank_idx: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Production warp dispatch for banks that share rows and hypotheses
+    (salve_tpu/ops/warp.py:428, once for each bank).
+
+    On CUDA banks: the shear parameters once, in PyTorch, then one launch of
+    kernel B3 for every bank (at most two, a batch's ceiling and floor),
+    which reads the banks in place through `bank_idx`. On CPU banks: the
+    exact NN gather of each, as JAX's own dispatch does off the TPU.
+
+    Returns one (B, dst_img_px+1, dst_img_px+1, 3) uint8 warp a bank.
+    """
+    banks = tuple(banks)
+    if banks[0].device.type == "cuda":
+        rows = _bank_rows(banks[0], bank_idx, i2Ri1.shape[0])
+        p = shear_warp_params(i2Ri1, i2ti1_scaled, banks[0].shape[1], dst_img_px, meters_per_px)
+        return shear_warp_cuda(tuple(b.contiguous() for b in banks), rows.contiguous(), p)
+    return tuple(
+        warp_bank_sim2_nn(b, i2Ri1, i2ti1_scaled, dst_img_px, meters_per_px, bank_idx) for b in banks
+    )
+
+
 def warp_bank_auto(
     bank_packed: torch.Tensor,
     i2Ri1: torch.Tensor,
@@ -337,18 +383,6 @@ def warp_bank_auto(
     meters_per_px: float = DEFAULT_METERS_PER_PX,
     bank_idx: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Production warp dispatch (salve_tpu/ops/warp.py:428).
-
-    On a CUDA bank: the shear parameters in PyTorch, then kernel B3, which
-    reads the bank in place through `bank_idx`. On a CPU bank: the exact NN
-    gather, as JAX's own dispatch does off the TPU.
-    """
-    if bank_packed.device.type == "cuda":
-        rows = _bank_rows(bank_packed, bank_idx, i2Ri1.shape[0])
-        p = shear_warp_params(
-            i2Ri1, i2ti1_scaled, bank_packed.shape[1], dst_img_px, meters_per_px
-        )
-        return shear_warp_cuda(bank_packed.contiguous(), rows.contiguous(), p)
-    return warp_bank_sim2_nn(
-        bank_packed, i2Ri1, i2ti1_scaled, dst_img_px, meters_per_px, bank_idx
-    )
+    """Production warp dispatch of one bank (salve_tpu/ops/warp.py:428):
+    `warp_banks_auto` with a single bank."""
+    return warp_banks_auto((bank_packed,), i2Ri1, i2ti1_scaled, dst_img_px, meters_per_px, bank_idx)[0]

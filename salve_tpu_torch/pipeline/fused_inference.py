@@ -8,8 +8,8 @@ host round trip of images. Output is the per-hypothesis (y_hat, prob)
 record Stage D consumes.
 
 Kernels on this path: B1 (splat) and B2 (fill + mask) for the identity and
-warp banks, and B3 (shear warp) per hypothesis in warp mode; B1 and B2 per
-hypothesis in direct mode.
+warp banks, and in warp mode B3 (shear warp), one launch a batch for the
+ceiling and the floor; B1 and B2 per hypothesis in direct mode.
 """
 
 from __future__ import annotations
@@ -63,12 +63,13 @@ def score_batch(
     of the ceiling and the floor instead of the raw pano banks.
     """
     if use_warp_renders:
-        from salve_tpu_torch.ops.warp import warp_bank_auto
+        from salve_tpu_torch.ops.warp import warp_banks_auto
 
         t_scaled = translations * HOHO_S_ZIND_SCALE_FACTOR
-        args = (rotations, t_scaled, render_cfg.img_px, render_cfg.meters_per_px)
-        ceil1 = warp_bank_auto(depths, *args, bank_idx=i1_idx)
-        floor1 = warp_bank_auto(rgbs, *args, bank_idx=i1_idx)
+        ceil1, floor1 = warp_banks_auto(
+            (depths, rgbs), rotations, t_scaled, render_cfg.img_px, render_cfg.meters_per_px,
+            bank_idx=i1_idx,
+        )
     else:
         d1, c1 = depths[i1_idx], rgbs[i1_idx]
         ceil1 = render_transformed_batched(d1, c1, rotations, translations, CEILING_Z_RANGE, render_cfg)

@@ -2,7 +2,9 @@
 salve_tpu.
 
 With the add order of pallas_fill.py:_box_sum the plain version matches both
-the Pallas kernel (interpret mode) and the XLA conv path bit for bit.
+the Pallas kernel (interpret mode) and the XLA conv path bit for bit. A
+pure-torch model of the CUDA kernel's schedule (csrc/fill.cu: strips, row
+segments, shrinking rings, select and integer den) is held to both as well.
 """
 
 import jax
@@ -47,6 +49,85 @@ def test_plain_fill_matches_pallas_and_xla(seed, density):
     )
     np.testing.assert_array_equal(got, xla)
     assert (got > 0).mean() > (sp > 0).mean()  # the fill did fill
+
+
+# csrc/fill.cu: a warp's strip of stage columns, the six-round halo, the
+# shortest row segment and the launcher's segment rule.
+STAGE_W, HALO, MASK_R, MIN_SEG = 64, fill.FILL_ITERS, fill.DEFAULT_MASK_KERNEL // 2, 16
+OUT_W = STAGE_W - 2 * HALO
+
+
+def _segment_rows(b, h, w, resident_warps):
+    """Rows of a segment, as salve_fill_mask picks them."""
+    n_strip = -(-w // OUT_W)
+    n_seg = max(1, resident_warps // (b * n_strip))
+    n_seg = min(n_seg, -(-h // MIN_SEG))
+    return -(-h // n_seg)
+
+
+def _emulate_b2(sp, occ, sup, seg):
+    """The kernel's schedule in torch: each (image, segment, strip) window of
+    (seg + 12) x 64 stage cells runs round r only on the ring still valid
+    (rows and columns [r, end - r)); every cell outside that ring holds NaN
+    colour and occupancy 1, so a read outside the schedule shows. Occupancy
+    is a 0/1 int with an integer den, the product a select."""
+    b, h, w, _ = sp.shape
+    out = torch.full_like(sp, float("nan"))
+    for img in range(b):
+        for y0 in range(0, h, seg):
+            y1 = min(y0 + seg, h)
+            rows = torch.arange(y0 - HALO, y1 + HALO)
+            for xs in range(-HALO, w - HALO, OUT_W):
+                cols = torch.arange(xs, xs + STAGE_W)
+                inimg = ((rows >= 0) & (rows < h))[:, None] & ((cols >= 0) & (cols < w))[None, :]
+                ry, cx = rows.clamp(0, h - 1)[:, None], cols.clamp(0, w - 1)[None, :]
+                c = sp[img][ry, cx]  # (H, 64, 3)
+                o = (occ[img][ry, cx] & inimg).int()
+                sb = (sup[img][ry, cx] & inimg).int()
+                hh = len(rows)
+                for r in range(1, HALO + 1):
+                    p = torch.where(o[..., None] > 0, c, torch.zeros_like(c))
+                    vert = (p[r:hh - r] + p[r - 1:hh - r - 1]) + p[r + 1:hh - r + 1]
+                    vo = o[r:hh - r] + o[r - 1:hh - r - 1] + o[r + 1:hh - r + 1]
+                    cw = STAGE_W - r
+                    num = (vert[:, r:cw] + vert[:, r - 1:cw - 1]) + vert[:, r + 1:cw + 1]
+                    den = vo[:, r:cw] + vo[:, r - 1:cw - 1] + vo[:, r + 1:cw + 1]
+                    keep = o[r:hh - r, r:cw] > 0
+                    q = torch.where((den > 1)[..., None], num / den[..., None].float(), num)
+                    new_c = torch.where(keep[..., None], c[r:hh - r, r:cw], q)
+                    new_o = (keep | ((den > 0) & inimg[r:hh - r, r:cw])).int()
+                    c = torch.full_like(c, float("nan"))
+                    o = torch.ones_like(o)
+                    c[r:hh - r, r:cw], o[r:hh - r, r:cw] = new_c, new_o
+                # The support OR: rows first (a column's 11-bit window), then columns.
+                colany = torch.stack([sb[y - MASK_R:y + MASK_R + 1].amax(0) for y in range(HALO, hh - HALO)])
+                m = torch.stack([colany[:, x - MASK_R:x + MASK_R + 1].amax(1)
+                                 for x in range(HALO, STAGE_W - HALO)], 1)
+                x1 = min(xs + HALO + OUT_W, w)
+                res = torch.where(m[..., None] > 0, c[HALO:hh - HALO, HALO:STAGE_W - HALO], 0.0)
+                out[img, y0:y1, xs + HALO:x1] = res[:, : x1 - xs - HALO]
+    return out
+
+
+@pytest.mark.parametrize("density", [0.0, 0.02, 1.0])
+@pytest.mark.parametrize("h,w", [(37, 53), (64, 64), (1, 1)])
+def test_kernel_schedule_model_matches_plain_and_pallas(h, w, density):
+    sp, occ, sup = _sparse(5, b=2, h=h, w=w, density=density)
+    sp_t, occ_t, sup_t = torch.from_numpy(sp), torch.from_numpy(occ), torch.from_numpy(sup)
+    plain = fill.fill_and_mask_plain(sp_t, occ_t, sup_t).numpy()
+    pallas = np.asarray(
+        fill_and_mask_batched(jnp.asarray(sp), jnp.asarray(occ), jnp.asarray(sup), interpret=True)
+    )
+    np.testing.assert_array_equal(plain, pallas)
+    # One segment a strip, the segments of a full H100, and the shortest ones.
+    segs = {h, _segment_rows(2, h, w, 132 * 6 * 2), min(h, MIN_SEG)}
+    for seg in sorted(segs):
+        got = _emulate_b2(sp_t, occ_t, sup_t, seg).numpy()
+        np.testing.assert_array_equal(got, plain, err_msg=f"segment of {seg} rows")
+    if density == 1.0:
+        assert (plain == sp).all()
+    if density == 0.0:
+        assert not plain.any()
 
 
 def test_support_mask_matches_hallucination_mask():

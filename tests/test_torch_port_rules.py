@@ -115,8 +115,10 @@ def test_cpu_only_build_has_no_kernels_and_chip_smoke_refuses(capsys):
     assert capsys.readouterr().out == ""
 
 
-def test_kernel_sources_are_hashed_and_present():
-    for name in kernels.SOURCES:
+def test_kernel_sources_are_hashed_and_present(tmp_path, monkeypatch):
+    names = kernels.sources()
+    assert {"splat.cu", "fill.cu", "warp.cu"} <= set(names)
+    for name in names:
         text = (kernels.CSRC / name).read_text()
         assert "Replaces salve_tpu/ops/pallas_" in text
         assert "What bounds it" in text
@@ -124,3 +126,19 @@ def test_kernel_sources_are_hashed_and_present():
     assert "--use_fast_math" not in kernels.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert len(kernels._source_hash()) == 16
+
+    # Every file under csrc/ is hashed, headers included, so editing a
+    # shared header rebuilds instead of reusing a stale library.
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in names:
+        (csrc / name).write_bytes((kernels.CSRC / name).read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    assert kernels.sources() == names
+    base = kernels._source_hash()
+    (csrc / "common.cuh").write_text("#pragma once\n")
+    with_header = kernels._source_hash()
+    assert with_header != base
+    assert kernels.sources() == names  # a header is hashed, not compiled alone
+    (csrc / "common.cuh").write_text("#pragma once\n// edited\n")
+    assert kernels._source_hash() not in (base, with_header)
