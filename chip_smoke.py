@@ -7,10 +7,15 @@ CUDA toolkit's nvcc. Exits non-zero, printing no result, without a card or
 outside a checkout of the repository.
 
 Phases:
-  1. build the three CUDA kernels from `salve_tpu_torch/csrc` (timed);
+  1. build the three CUDA kernels from `salve_tpu_torch/csrc` (timed), and
+     print how many blocks B1's cooperative launch takes;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (4 synthetic 512x1024 panos; 501^2 renders, 1001^2
-     warp banks, 32 hypotheses): B1 splat, B2 fill + mask (also 32x501^2,
+     warp banks, 32 hypotheses): B1 splat (ceiling and floor at 4x501^2 and
+     4x1001^2, the 32x501^2 direct-mode batch, rows of N % 4 != 0 points,
+     all points rejected, all in one cell, points on each image's first and
+     last cell),
+     B2 fill + mask (also 32x501^2,
      the direct-mode batch, an odd 3x37x53, all-empty and all-occupied
      images, and B2's quotient against IEEE division for every float
      numerator) and B3 shear warp through the ceiling+floor pair entry (8
@@ -28,9 +33,11 @@ Phases:
      each timed round), its plain version and (B1) the library call doing
      the same work (the grid fill and one scatter_reduce_ with rejected
      points sent to a sentinel cell), median of CUDA-event timings, beside
-     the bound computed from this run's inputs; for B1 also the L2-atomic
-     bound, from the atomicMax rate this card shows into a grid of the same
-     size; B2 at 4x1001^2 and 32x501^2; B3 per surface in each rot90 branch,
+     the bound computed from this run's inputs; B1 at its three main-path
+     shapes (4x1001^2, 4x501^2, 32x501^2), with its atomic bounds: accepted
+     points over the atomicMax rate this card shows into an L2-resident
+     grid of the same size and into the shared memory of a cluster of 16
+     blocks; B2 at 4x1001^2 and 32x501^2; B3 per surface in each rot90 branch,
      and with the L2 flushed before each launch (outside the timed window),
      as the verifier leaves it between batches.
 
@@ -40,6 +47,7 @@ and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -62,6 +70,9 @@ N_DIRECT_HYPS = 1024
 SLEEP_CYCLES = 10_000_000
 # Atomics of one L2-rate probe launch (csrc/splat.cu:salve_l2_atomic_probe).
 PROBE_ATOMICS = 1 << 26
+# int32 cells a block of the DSMEM-rate probe (csrc/splat.cu) holds: a 501^2
+# grid over the 16 blocks of one cluster.
+DSMEM_BLOCK_CELLS = 15_688
 
 REPLACES = {
     "splat": "salve_tpu/ops/pallas_splat.py:77",
@@ -163,6 +174,10 @@ def run(dev) -> dict:
     for line in lib.ptxas_log.splitlines():
         if "registers" in line or line.startswith("=="):
             log("  " + line.strip())
+    blocks = ctypes.c_int(0)
+    kernels.check(lib.lib.salve_splat_max_blocks(ctypes.addressof(blocks)), "B1 blocks")
+    report["b1_blocks"] = blocks.value
+    log(f"phase 1: B1's cooperative launch: {blocks.value} blocks of 512 threads")
 
     # -- Phase 2: kernels against their plain versions ----------------------
     depths_np, rgbs_np = make_synthetic_pano_bank(n_panos, pano_h, pano_w, seed=0)
@@ -171,18 +186,35 @@ def run(dev) -> dict:
     xyz, c, v = surface_clouds(depths, rgbs, FLOOR_Z_RANGE, render_cfg)
     err = {"splat": 0.0, "fill": 0.0, "warp": 0.0}
     timing_inputs = {}
+    rng = np.random.default_rng(1)
+    # The direct-mode batch: 32 hypothesis clouds of pano 1 moved into the
+    # partner's frame, as rendering/bev_pair.py:render_transformed_batched.
+    xyz32, c32, v32 = direct_batch_clouds(rng, depths, rgbs, batch, render_cfg)
+    b1_cases = []
+    for zr, surface in ((CEILING_Z_RANGE, "ceiling"), (FLOOR_Z_RANGE, "floor")):
+        for px in (img_px, bank_px):
+            keys = splat_keys_at(bev, splat, *surface_clouds(depths, rgbs, zr, render_cfg), px,
+                                 render_cfg.meters_per_px)
+            b1_cases.append((f"{surface} {n_panos}x{px + 1}^2", keys, px + 1, px + 1))
+            if surface == "floor":
+                timing_inputs[f"splat {n_panos}x{px + 1}^2"] = (*keys, px + 1)
+    keys = splat_keys_at(bev, splat, xyz32, c32, v32, img_px, render_cfg.meters_per_px)
+    b1_cases.append((f"floor {batch}x{img_px + 1}^2 (direct-mode batch)", keys, img_px + 1, img_px + 1))
+    timing_inputs[f"splat {batch}x{img_px + 1}^2"] = (*keys, img_px + 1)
+    b1_cases += b1_edge_cases(np.random.default_rng(7), dev)
+    for name, (cell, key, ok), h, w in b1_cases:
+        got = splat.splat_priority_grid(cell, key, ok, h, w)
+        ref = splat.splat_priority_grid_plain(cell, key, ok, h, w)
+        e = max_abs_diff(got, ref)
+        log(f"phase 2: B1 splat {name}, {cell.shape[1]} points a row: max |diff| {e}")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"B1 splat disagrees with its plain version at {name}")
+        err["splat"] = max(err["splat"], e)
+        if name.startswith("all rejected") and not bool((got == -1).all()):
+            raise AssertionError("B1 wrote a cell where no point was accepted")
+
     for px in (img_px, bank_px):
         side = px + 1
-        xy_img, z, rgb255, valid = bev.splat_inputs(xyz, c, v, px, render_cfg.meters_per_px)
-        cell, key, ok = splat.splat_keys(xy_img, z, valid, side, side)
-        got = splat.splat_priority_grid(cell, key, ok, side, side)
-        ref = splat.splat_priority_grid_plain(cell, key, ok, side, side)
-        e = max_abs_diff(got, ref)
-        log(f"phase 2: B1 splat {n_panos}x{side}^2 from {cell.shape[1]} points: max |diff| {e}")
-        if not torch.equal(got, ref):
-            raise AssertionError("B1 splat disagrees with its plain version")
-        err["splat"] = max(err["splat"], e)
-
         sparse, occ, support = fill_inputs(bev, splat, xyz, c, v, px, render_cfg.meters_per_px)
         got = fill.fill_and_mask(sparse, occ, support)
         ref = fill.fill_and_mask_plain(sparse, occ, support)
@@ -191,16 +223,8 @@ def run(dev) -> dict:
         if not torch.equal(got, ref):
             raise AssertionError("B2 fill+mask disagrees with its plain version")
         err["fill"] = max(err["fill"], e)
-        timing_inputs[px] = (cell, key, ok, sparse, occ, support)
+        timing_inputs[px] = (sparse, occ, support)
 
-    rng = np.random.default_rng(1)
-    # The direct-mode batch: 32 hypothesis clouds of pano 1 moved into the
-    # partner's frame, as rendering/bev_pair.py:render_transformed_batched.
-    R, t, idx = random_hypotheses(rng, batch, n_panos, dev)
-    xyz32, c32, v32 = surface_clouds(depths[idx], rgbs[idx], FLOOR_Z_RANGE, render_cfg)
-    xt = R[:, None, 0, 0] * xyz32[..., 0] + R[:, None, 0, 1] * xyz32[..., 1] + 1.5 * t[:, None, 0]
-    yt = R[:, None, 1, 0] * xyz32[..., 0] + R[:, None, 1, 1] * xyz32[..., 1] + 1.5 * t[:, None, 1]
-    xyz32 = torch.stack([xt, yt, xyz32[..., 2]], dim=-1)
     timing_inputs["direct"] = fill_inputs(bev, splat, xyz32, c32, v32, img_px, render_cfg.meters_per_px)
     odd = {"3x37x53": random_fill_inputs(rng, 3, 37, 53, 0.05, dev),
            "empty 2x64x96": random_fill_inputs(rng, 2, 64, 96, 0.0, dev),
@@ -289,43 +313,27 @@ def run(dev) -> dict:
     if runs["warp"]["launches"]["warp"] != n_batches:
         raise AssertionError(f"warp mode launched B3 {runs['warp']['launches']['warp']} times "
                              f"for {n_batches} batches: not once a batch for both surfaces")
+    # B1 is one launch a render: 4 banks a floor, plus 2 a batch in direct mode.
+    for mode, want in (("warp", 4), ("direct", 2 + 2 * -(-N_DIRECT_HYPS // batch))):
+        if runs[mode]["launches"]["splat"] != want:
+            raise AssertionError(f"{mode} mode launched B1 {runs[mode]['launches']['splat']} times, not {want}")
     check_small_input(dev)
     report["breakdown"] = time_breakdown(model, cfg, render_cfg, depths, rgbs, hyps[:batch], dev)
     log("phase 3: warp mode, median ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in report["breakdown"].items()))
 
     # -- Phase 4: times beside bounds -----------------------------------------
-    cell, key, ok, sparse, occ, support = timing_inputs[bank_px]
-    side = bank_px + 1
-    b, n = cell.shape
-    hw = side * side
-    # The library call on equal work: the grid fill and one scatter_reduce_,
-    # rejected points sent to a sentinel cell a row (inputs masked beforehand).
-    lib_idx = torch.where(ok, cell.long(), torch.full_like(cell, hw, dtype=torch.long))
-    lib_src = torch.where(ok, key, torch.full_like(key, -1))
-
-    def library_splat():
-        grid = torch.full((b, hw + 1), -1, dtype=torch.int32, device=dev)
-        return grid.scatter_reduce_(1, lib_idx, lib_src, "amax", include_self=True)
-
     k = report["kernels"]
-    k["splat"] = {
-        "shape": f"{b}x{n} points -> {b}x{side}^2 grid",
-        "ms": time_ms(lambda: splat.splat_priority_grid(cell, key, ok, side, side)),
-        "plain_ms": time_ms(lambda: splat.splat_priority_grid_plain(cell, key, ok, side, side)),
-        "library_ms": time_ms(library_splat),
-        "bound_ms": (b * n * 9 + b * hw * 4) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-    }
-    # B1's second bound: one L2 atomic per accepted point, at the fastest
-    # atomicMax rate this card showed into a grid of the same size.
-    rates = l2_atomic_rates(lib.lib, b * hw, dev)
-    accepted = int(ok.sum())
-    k["splat"].update(accepted_points=accepted, l2_atomics_per_s=rates,
-                      l2_bound_ms=accepted / max(rates.values()) * 1e3)
-    log(f"phase 4: L2 atomicMax rate into a {b}x{side}^2 grid: "
-        + ", ".join(f"{p} {r:.4e}/s" for p, r in rates.items())
-        + f"; {accepted} accepted points -> L2 bound {k['splat']['l2_bound_ms']:.4f} ms")
+    # B1 at the main path's three shapes: the extended banks (the row's own
+    # numbers), the identity banks and the direct-mode batch.
+    dsmem = dsmem_atomic_rate(lib.lib)
+    b1 = {name[len("splat "):]: splat_row(lib.lib, splat, *timing_inputs[name], dsmem, dev)
+          for name in (f"splat {n_panos}x{bank_px + 1}^2", f"splat {n_panos}x{img_px + 1}^2",
+                       f"splat {batch}x{img_px + 1}^2")}
+    main_shape = f"{n_panos}x{bank_px + 1}^2"
+    k["splat"] = {kk: b1[main_shape][kk] for kk in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                    "bound_by", "l2_bound_ms", "dsmem_bound_ms")}
+    k["splat"]["extra"] = {"by_shape": b1, "blocks": report["b1_blocks"]}
 
     def fill_row(args):
         cells = args[0].shape[0] * args[0].shape[1] * args[0].shape[2]
@@ -339,7 +347,7 @@ def run(dev) -> dict:
             "bound_by": "bytes" if f_bytes >= f_ops else "operations",
         }
 
-    k["fill"] = fill_row((sparse, occ, support))
+    k["fill"] = fill_row(timing_inputs[bank_px])
     k["fill"]["extra"] = {"direct_batch": fill_row(timing_inputs["direct"])}
     log(f"phase 4: fill at the direct-mode batch {k['fill']['extra']['direct_batch']}")
 
@@ -366,6 +374,118 @@ def run(dev) -> dict:
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, library {row['library_ms']})")
     report["runs"] = runs
     return report
+
+
+def direct_batch_clouds(rng, depths, rgbs, n: int, render_cfg):
+    """The floor clouds of a direct-mode batch: n random hypotheses' pano 1
+    moved into the partner's frame (rendering/bev_pair.py:render_transformed_batched)."""
+    import torch
+
+    from salve_tpu_torch.ops.backproject import FLOOR_Z_RANGE
+    from salve_tpu_torch.rendering.bev_pair import surface_clouds
+
+    R, t, idx = random_hypotheses(rng, n, depths.shape[0], depths.device)
+    xyz, c, v = surface_clouds(depths[idx], rgbs[idx], FLOOR_Z_RANGE, render_cfg)
+    xt = R[:, None, 0, 0] * xyz[..., 0] + R[:, None, 0, 1] * xyz[..., 1] + 1.5 * t[:, None, 0]
+    yt = R[:, None, 1, 0] * xyz[..., 0] + R[:, None, 1, 1] * xyz[..., 1] + 1.5 * t[:, None, 1]
+    return torch.stack([xt, yt, xyz[..., 2]], dim=-1), c, v
+
+
+def splat_keys_at(bev, splat, xyz, c, v, px: int, meters_per_px: float):
+    """B1's (cell, key, ok) for clouds on a (px+1)^2 grid, as
+    ops/bev.py:render_bev_images_batched makes them."""
+    xy_img, z, _, valid = bev.splat_inputs(xyz, c, v, px, meters_per_px)
+    return splat.splat_keys(xy_img, z, valid, px + 1, px + 1)
+
+
+def b1_edge_cases(rng, dev) -> list:
+    """(name, (cell, key, ok), h, w) of B1's edge inputs: rows of N % 4 != 0
+    points (so groups of 4 straddle two images), every point rejected (the
+    grid must come back all -1: no fill pass runs outside the kernel), every
+    point in one cell, and points on each image's first and last cell."""
+    import numpy as np
+    import torch
+
+    def t(cell, key, ok):
+        return tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in (cell, key, ok))
+
+    b, h, w, n = 3, 37, 53, 1001
+    hw = h * w
+    cell = rng.integers(-3, hw + 3, (b, n)).astype(np.int32)
+    key = rng.integers(0, 4 * n, (b, n)).astype(np.int32)
+    ok = (rng.uniform(size=(b, n)) < 0.8) & (cell >= 0) & (cell < hw)  # rejected cells may lie outside
+    ends = cell.copy()
+    ends[:, :4], ends[:, -3:] = [0, hw - 1, 0, hw - 1], [hw - 1, 0, hw - 1]
+    one = np.full((b, n), 1234, np.int32)
+    m = 180_225
+    return [
+        ("3x37x53, N % 4 = 1", t(cell, key, ok), h, w),
+        ("all rejected 3x37x53", t(cell, key, np.zeros_like(ok)), h, w),
+        ("all rejected 4x501^2", t(np.zeros((4, m), np.int32), np.ones((4, m), np.int32), np.zeros((4, m), bool)),
+         501, 501),
+        ("one cell 3x37x53", t(one, key, np.ones_like(ok)), h, w),
+        ("first and last cells 3x37x53", t(ends, key, (ends >= 0) & (ends < hw)), h, w),
+    ]
+
+
+def splat_row(lib, splat, cell, key, ok, side: int, dsmem: float, dev) -> dict:
+    """B1 at one shape: its time, the plain and library times on the same
+    inputs, and its byte, L2-atomic and DSMEM-atomic bounds (`dsmem`: the
+    DSMEM atomicMax rate, a second)."""
+    import torch
+
+    b, n = cell.shape
+    hw = side * side
+    # The library call on equal work: the grid fill and one scatter_reduce_,
+    # rejected points sent to a sentinel cell a row (inputs masked beforehand).
+    lib_idx = torch.where(ok, cell.long(), torch.full_like(cell, hw, dtype=torch.long))
+    lib_src = torch.where(ok, key, torch.full_like(key, -1))
+
+    def library_splat():
+        grid = torch.full((b, hw + 1), -1, dtype=torch.int32, device=dev)
+        return grid.scatter_reduce_(1, lib_idx, lib_src, "amax", include_self=True)
+
+    accepted = int(ok.sum())
+    l2 = l2_atomic_rates(lib, b * hw, dev)
+    row = {
+        "shape": f"{b}x{n} points -> {b}x{side}^2 grid",
+        "ms": time_ms(lambda: splat.splat_priority_grid(cell, key, ok, side, side)),
+        "plain_ms": time_ms(lambda: splat.splat_priority_grid_plain(cell, key, ok, side, side)),
+        "library_ms": time_ms(library_splat),
+        "bound_ms": (b * n * 9 + b * hw * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "accepted_points": accepted,
+        "distinct_cells": int((splat.splat_priority_grid(cell, key, ok, side, side) >= 0).sum()),
+        "l2_atomics_per_s": l2,
+        "l2_bound_ms": accepted / max(l2.values()) * 1e3,
+        "dsmem_atomics_per_s": dsmem,
+        "dsmem_bound_ms": accepted / dsmem * 1e3,
+    }
+    log(f"phase 4: B1 {row['shape']}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+        f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f}; {accepted} accepted points on "
+        f"{row['distinct_cells']} cells: L2 atomicMax " + ", ".join(f"{p} {r:.4e}/s" for p, r in l2.items())
+        + f" -> {row['l2_bound_ms']:.4f} ms, DSMEM atomicMax {dsmem:.4e}/s -> {row['dsmem_bound_ms']:.4f} ms")
+    return row
+
+
+def dsmem_atomic_rate(lib) -> float:
+    """int32 atomicMax per second into the shared memory of clusters of 16
+    blocks of DSMEM_BLOCK_CELLS cells (random block of the cluster, random
+    cell), with as many clusters as the card holds at once."""
+    from salve_tpu_torch.ops import kernels
+
+    n = ctypes.c_int(0)
+    per_thread = 256
+
+    def probe():
+        kernels.check(lib.salve_dsmem_atomic_probe(16, DSMEM_BLOCK_CELLS, per_thread, ctypes.addressof(n),
+                                                   kernels.stream_handle()), "dsmem probe")
+
+    ms = time_ms(probe)
+    rate = n.value * 16 * 1024 * per_thread / (ms * 1e-3)
+    log(f"phase 4: DSMEM atomicMax probe: {n.value} clusters of 16 blocks of {DSMEM_BLOCK_CELLS} cells, "
+        f"{rate:.4e}/s")
+    return rate
 
 
 def random_hypotheses(rng, n: int, n_panos: int, dev, branches=None):
@@ -569,7 +689,8 @@ def main() -> int:
     log(f"throughput: warp mode per score batch {report['batch'] * 1e3 / bd['score_batch']:.2f} hypotheses/s; "
         f"the banks cost {bd['banks_per_floor']:.3f} ms once per floor")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "params_ms", "launches_direct", "shape",
+            "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
+            "shape",
             "extra")
     rows = [{kk: row.get(kk) for kk in keys} for row in report["kernels"].values()]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,5 +1,5 @@
-"""A/B timing of the fill+mask (B2) and shear-warp (B3) CUDA kernels of two
-checkouts of this repository, on one card, with one harness.
+"""A/B timing of the splat (B1), fill+mask (B2) and shear-warp (B3) CUDA
+kernels of two checkouts of this repository, on one card, with one harness.
 
     python3 kernel_ab.py OTHER_TREE
 
@@ -11,6 +11,11 @@ one tree first on sys.path, builds that tree's kernels with its own
 (4 synthetic 512x1024 panos; 501^2 renders and 1001^2 warp banks, as
 chip_smoke.py does) and times, through the tree's public wrappers:
 
+  * B1 at its three main-path shapes: 4x1001^2 (the extended banks),
+    4x501^2 (the identity banks) and 32x501^2 (a direct-mode batch), each
+    tree's wrapper whole (a separate grid fill included where the tree has
+    one), and at cluster sizes 8 and 16 where the tree's wrapper takes a
+    `splat_plan`;
   * B2 at 4x1001^2 (the banks) and 32x501^2 (a direct-mode batch);
   * B3 for one batch's ceiling and floor (one pair launch where the tree has
     `warp_banks_auto`, else two single launches, as that tree's score_batch
@@ -63,12 +68,20 @@ def child(tree: Path) -> dict:
     res = {"tree": str(tree)}
     xyz, c, v = surface_clouds(depths, rgbs, FLOOR_Z_RANGE, cfg)
     banks_in = h.fill_inputs(bev, splat, xyz, c, v, 1000, cfg.meters_per_px)
-    R, t, idx = h.random_hypotheses(rng, 32, 4, dev)
-    xyz32, c32, v32 = surface_clouds(depths[idx], rgbs[idx], FLOOR_Z_RANGE, cfg)
-    xt = R[:, None, 0, 0] * xyz32[..., 0] + R[:, None, 0, 1] * xyz32[..., 1] + 1.5 * t[:, None, 0]
-    yt = R[:, None, 1, 0] * xyz32[..., 0] + R[:, None, 1, 1] * xyz32[..., 1] + 1.5 * t[:, None, 1]
-    direct_in = h.fill_inputs(bev, splat, torch.stack([xt, yt, xyz32[..., 2]], -1), c32, v32, 500,
-                              cfg.meters_per_px)
+    xyz32, c32, v32 = h.direct_batch_clouds(rng, depths, rgbs, 32, cfg)
+    direct_in = h.fill_inputs(bev, splat, xyz32, c32, v32, 500, cfg.meters_per_px)
+    for name, clouds, px in (("splat_4x1001", (xyz, c, v), 1000), ("splat_4x501", (xyz, c, v), 500),
+                             ("splat_32x501", (xyz32, c32, v32), 500)):
+        keys = h.splat_keys_at(bev, splat, *clouds, px, cfg.meters_per_px)
+        if not torch.equal(splat.splat_priority_grid(*keys, px + 1, px + 1),
+                           splat.splat_priority_grid_plain(*keys, px + 1, px + 1)):
+            raise AssertionError(f"{tree}: B1 disagrees with its plain version at {name}")
+        res[name + "_ms"] = h.time_ms(lambda: splat.splat_priority_grid(*keys, px + 1, px + 1), rounds=7)
+        if hasattr(splat, "splat_plan"):  # a tree whose B1 takes a cluster size: time both
+            for cl in (8, 16):
+                plan = splat.splat_plan((px + 1) ** 2, cl)
+                res[f"{name}_cluster{cl}_ms"] = h.time_ms(
+                    lambda: splat.splat_priority_grid_cuda(*keys, px + 1, px + 1, plan=plan), rounds=7)
     for name, args in (("fill_4x1001", banks_in), ("fill_32x501", direct_in)):
         if not torch.equal(fill.fill_and_mask(*args), fill.fill_and_mask_plain(*args)):
             raise AssertionError(f"{tree}: B2 disagrees with its plain version at {name}")

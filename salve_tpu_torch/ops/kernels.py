@@ -43,7 +43,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "salve_splat_max": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "salve_splat_max_blocks": [_P],
     "salve_l2_atomic_probe": [_P, _L, _L, _L, _P],
+    "salve_dsmem_atomic_probe": [_I, _I, _I, _P, _P],
     "salve_fill_mask": [_P, _P, _P, _P, _I, _I, _I, _P],
     "salve_fill_div_check": [_P, _P],
     "salve_shear_warp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

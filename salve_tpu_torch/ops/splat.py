@@ -3,6 +3,8 @@
 Port of salve_tpu/ops/bev.py:splat_zorder_batched, with its per-cell max of
 the priority key (salve_tpu/ops/pallas_splat.py:splat_priority_grid_pallas,
 the XLA scatter-max at bev.py:165-171) as the CUDA kernel `csrc/splat.cu`.
+The kernel writes the grid's -1 and the points' atomics in one cooperative
+launch, with a grid-wide barrier between them.
 
 Priority within a cell is (z_bin, point_index) lexicographic: the key
 `z_bin * N + i` keeps the reference's slice-by-slice overwrite order
@@ -48,7 +50,7 @@ def splat_priority_grid_cuda(
         raise ValueError(f"cell/key/ok must share one (B, N) shape: {cell.shape}, {key.shape}, {ok.shape}")
     b, n = cell.shape
     hw = img_h * img_w
-    grid = torch.full((b, hw), -1, dtype=torch.int32, device=cell.device)
+    grid = torch.empty((b, hw), dtype=torch.int32, device=cell.device)  # B1 writes every cell
     lib = kernels.load().lib
     err = lib.salve_splat_max(
         cell.data_ptr(), key.data_ptr(), ok.data_ptr(), grid.data_ptr(),
