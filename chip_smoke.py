@@ -1,4 +1,5 @@
-"""Chip smoke: drive salve_tpu_torch's fused scoring path on one CUDA card.
+"""Chip smoke: drive salve_tpu_torch's fused scoring path and Stage A on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -39,7 +40,15 @@ Phases:
      grid of the same size and into the shared memory of a cluster of 16
      blocks; B2 at 4x1001^2 and 32x501^2; B3 per surface in each rot90 branch,
      and with the L2 flushed before each launch (outside the timed window),
-     as the verifier leaves it between batches.
+     as the verifier leaves it between batches;
+  5. Stage A on 8 procedural floors (version 11, a 4x4 grid: 12-17 panos):
+     `align_floor_pairs_batched` on the card at the inferred width ratio must
+     give the hypotheses, transform bytes included, of its CPU run and of
+     the host per-pair path; the GT-mode exporter writes two buildings; the
+     1000-iteration RANSAC Sim(3) alignment of one floor's poses (a known
+     Sim(3), noise, outliers) on the card against its CPU run and the known
+     transform; then the batched product's device ms per floor, and the
+     whole call's ms per floor and hypotheses/s on the card and on the CPU.
 
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -73,6 +82,15 @@ PROBE_ATOMICS = 1 << 26
 # int32 cells a block of the DSMEM-rate probe (csrc/splat.cu) holds: a 501^2
 # grid over the 16 blocks of one cluster.
 DSMEM_BLOCK_CELLS = 15_688
+# Stage A's floors: procedural buildings of these seeds on a 4x4 grid, which
+# reaches the generator's cap of 10 rooms a floor (12-17 panos).
+STAGE_A_SEEDS = tuple(range(8))
+STAGE_A_GRID = 4
+RANSAC_ITERS = 1000
+# Sleep ahead of a timed Stage A round (about 60 ms): longer than the host
+# takes to enqueue the batched product's ~110 small kernels, so the events
+# bracket device time only.
+STAGE_A_SLEEP_CYCLES = 10 * SLEEP_CYCLES
 
 REPLACES = {
     "splat": "salve_tpu/ops/pallas_splat.py:77",
@@ -98,13 +116,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, rounds: int = 5, per_round: int = 10, warmup: int = 2, prefill: bool = True) -> float:
+def time_ms(fn, rounds: int = 5, per_round: int = 10, warmup: int = 2, prefill: bool = True,
+            sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Median over `rounds` of the mean ms of `per_round` back-to-back calls.
 
     CUDA events bracket each round. With `prefill`, each round first queues
-    a sleep kernel of about 6 ms (outside the events), so the host enqueues
-    the calls while the card waits and the events see the card's time alone,
-    not the wrapper's Python; without it a slow host can add gaps.
+    a sleep kernel of `sleep_cycles` (about 6 ms by default; outside the
+    events), so the host enqueues the calls while the card waits and the
+    events see the card's time alone, not the wrapper's Python, as long as
+    the enqueue takes less than the sleep; without it a slow host can add
+    gaps.
     """
     import torch
 
@@ -116,7 +137,7 @@ def time_ms(fn, rounds: int = 5, per_round: int = 10, warmup: int = 2, prefill: 
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         if prefill:
-            torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda._sleep(sleep_cycles)
         a.record()
         for _ in range(per_round):
             fn()
@@ -373,7 +394,239 @@ def run(dev) -> dict:
         log(f"phase 4: {name}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, library {row['library_ms']})")
     report["runs"] = runs
+
+    # -- Phase 5: Stage A ------------------------------------------------------
+    report["stage_a"] = stage_a_phase(dev)
     return report
+
+
+def stage_a_floors():
+    """(seed, building json, pano dict, pairs) of Stage A's procedural floors."""
+    from salve_tpu_torch.common.pano_data import FloorData
+    from salve_tpu_torch.dataset import procedural
+
+    floors = []
+    for seed in STAGE_A_SEEDS:
+        building = procedural.generate_building_json(seed=seed, n_rows=STAGE_A_GRID, n_cols=STAGE_A_GRID, version=11)
+        fd = FloorData.from_json(building["merger"]["floor_01"], "floor_01")
+        pano_dict = {p.id: p for p in fd.panos}
+        ids = sorted(pano_dict)
+        floors.append((seed, building, pano_dict, [(i1, i2) for i1 in ids for i2 in ids if i1 < i2]))
+    return floors
+
+
+def hypothesis_key(h):
+    """What a hypothesis carries, its transform as the bytes the exporter writes."""
+    return (h.wdo_alignment_object, h.i1_wdo_idx, h.i2_wdo_idx, h.configuration,
+            h.i2Ti1.rotation.tobytes(), h.i2Ti1.translation.tobytes(), h.i2Ti1.scale)
+
+
+def host_clock_ms(fn, repeats: int = 3) -> float:
+    """Median host-clock ms of `fn`; the card is idle at the start of each
+    call, and `fn` ends in a device sync unless its enqueue alone is timed."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def stage_a_phase(dev) -> dict:
+    """Stage A on the card: equality with the CPU and host paths, the GT-mode
+    exporter, the RANSAC alignment, and times (module docstring, phase 5)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.hypotheses import batched, wdo_alignment
+    from salve_tpu_torch.hypotheses.export import export_single_building_wdo_alignment_hypotheses
+
+    cpu = torch.device("cpu")
+    floors = stage_a_floors()
+    device_mod.reset_launch_counts()
+    out = {"floors": []}
+    for seed, _, pano_dict, pairs in floors:
+        got = batched.align_floor_pairs_batched(pano_dict, pairs, use_inferred_wdos_layout=True, device=dev)
+        want = batched.align_floor_pairs_batched(pano_dict, pairs, use_inferred_wdos_layout=True, device=cpu)
+        n_hyps = 0
+        for i1, i2 in pairs:
+            host, _ = wdo_alignment.align_rooms_by_wd(
+                pano_dict[i1], pano_dict[i2], wdo_alignment.AlignTransformType.SE2, use_inferred_wdos_layout=True)
+            card = [hypothesis_key(h) for h in got[(i1, i2)]]
+            if card != [hypothesis_key(h) for h in want[(i1, i2)]]:
+                raise AssertionError(f"Stage A floor {seed}, pair {(i1, i2)}: the card's hypotheses differ from the CPU's")
+            if card != [hypothesis_key(h) for h in host]:
+                raise AssertionError(f"Stage A floor {seed}, pair {(i1, i2)}: the card's hypotheses differ from the "
+                                     "host per-pair path's")
+            n_hyps += len(card)
+        candidates = 0
+        for obj_type in batched._TYPES:
+            tables = batched.floor_tables(pano_dict, pairs, obj_type, dev)
+            if tables is not None:
+                b, w = tables[0].shape[:2]
+                candidates += b * w * w * batched._NUM_CONFIGS[obj_type]
+        row = {"seed": seed, "panos": len(pano_dict), "pairs": len(pairs), "candidates": candidates,
+               "hypotheses": n_hyps}
+        out["floors"].append(row)
+        log(f"phase 5: Stage A floor {seed}: {row['panos']} panos, {row['pairs']} pairs, {candidates} candidates "
+            f"(B*W*W*C), {n_hyps} hypotheses: the card's equal the CPU's and the host path's")
+    out["launches"] = device_mod.launch_counts()
+    log(f"phase 5: Stage A launches of B1-B3 (none on this path): {out['launches']}")
+
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=repo / "build") as tmp:
+        tmp = Path(tmp)
+        for seed, building, _, _ in floors[:2]:
+            bid = f"{seed:04d}"
+            (tmp / "zind" / bid).mkdir(parents=True)
+            (tmp / "zind" / bid / "zind_data.json").write_text(json.dumps(building))
+            flags = export_single_building_wdo_alignment_hypotheses(
+                str(tmp / "hyp"), bid, str(tmp / "zind" / bid / "zind_data.json"), str(tmp / "zind"),
+                use_inferred_wdos_layout=False, device=dev)
+            counts = {d.name: len(list(d.glob("*.json"))) for d in sorted((tmp / "hyp" / bid / "floor_01").iterdir())}
+            if set(counts) != {"gt_alignment_exact", "gt_alignment_approx", "incorrect_alignment"}:
+                raise AssertionError(f"exporter wrote {counts} for building {bid}")
+            log(f"phase 5: exporter, GT mode, building {bid}: files {counts}, GT-valid share "
+                f"{np.mean(flags['floor_01']):.3f}")
+            out.setdefault("export", {})[bid] = counts
+
+    out["ransac"] = ransac_check(dev, floors[0][2])
+    out["times"] = stage_a_times(dev, floors)
+    return out
+
+
+def ransac_check(dev, pano_dict) -> dict:
+    """RANSAC Sim(3) alignment of one floor's GT poses seen through a known
+    Sim(3), with noise, 3 outliers and a missing pose, on the card and on
+    the CPU; its device time and whole-call times."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch.algorithms import pose_alignment
+    from salve_tpu_torch.geometry.poses import Pose3, Sim3
+
+    rng = np.random.default_rng(11)
+    ref = [None] * (max(pano_dict) + 1)
+    for i, p in pano_dict.items():
+        ref[i] = Pose3.from_rot2_trans2(p.global_Sim2_local.rotation.astype(np.float64),
+                                        p.global_Sim2_local.translation.astype(np.float64))
+    th = rng.uniform(-np.pi, np.pi)
+    Rz = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1.0]])
+    known = Sim3(Rz, np.array([*rng.uniform(-2, 2, 2), 0.0]), float(rng.uniform(0.5, 2.0)))
+    est = []
+    for p in ref:
+        if p is None:
+            est.append(None)
+            continue
+        dth = rng.normal(0, 0.01)
+        Rn = np.array([[np.cos(dth), -np.sin(dth), 0], [np.sin(dth), np.cos(dth), 0], [0, 0, 1.0]])
+        t = Rz.T @ (p.t / known.s - known.t) + np.array([*rng.normal(0, 0.01, 2), 0.0])
+        est.append(Pose3(Rn @ Rz.T @ p.R, t))
+    live = [i for i, p in enumerate(est) if p is not None]
+    for i in rng.choice(live, 3, replace=False):
+        est[i] = Pose3(est[i].R, est[i].t + np.array([*rng.uniform(-3, 3, 2), 0.0]))
+    est[live[-1]] = None
+
+    (aligned, aSb), (aligned_cpu, _) = (
+        pose_alignment.ransac_align_poses_sim3_ignore_missing(ref, est, num_iters=RANSAC_ITERS, device=d)
+        for d in (dev, torch.device("cpu")))
+    pose_diff = max(max(np.abs(p.R - q.R).max(), np.abs(p.t - q.t).max())
+                    for p, q in zip(aligned, aligned_cpu) if p is not None)
+    rot_err_deg = float(np.rad2deg(np.arccos(np.clip((np.trace(aSb.R.T @ known.R) - 1) / 2, -1, 1))))
+    row = {"pose_diff_card_cpu": float(pose_diff), "rot_err_deg": rot_err_deg,
+           "scale_err": abs(aSb.s - known.s), "trans_err": float(np.abs(aSb.t - known.t).max())}
+    log(f"phase 5: RANSAC ({RANSAC_ITERS} iterations, {len(live) - 1} poses, 3 outliers): card vs CPU largest pose "
+        f"difference {pose_diff:.3e}; card vs the known Sim(3): rotation {rot_err_deg:.4f} deg, scale "
+        f"{row['scale_err']:.4e}, translation {row['trans_err']:.4e}")
+    if pose_diff > 1e-3 or rot_err_deg > 1.0 or row["scale_err"] > 0.02 * known.s:
+        raise AssertionError(f"RANSAC alignment on the card is off: {row}")
+
+    theta_a, ca, va = pose_alignment._planar_params(ref)
+    theta_b, cb, vb = pose_alignment._planar_params(est)
+    keep = pose_alignment.ransac_keep_masks(va & vb, RANSAC_ITERS, pose_alignment.DEFAULT_RANSAC_ALIGNMENT_DELETE_FRAC, 0)
+    args = [pose_alignment._f32(x, dev) for x in (theta_a, ca, theta_b, cb, va & vb, keep)]
+    row["errors_device_ms"] = time_ms(lambda: pose_alignment._ransac_errors(*args), rounds=7, per_round=1,
+                                      sleep_cycles=STAGE_A_SLEEP_CYCLES)
+    row["errors_enqueue_ms"] = host_clock_ms(lambda: pose_alignment._ransac_errors(*args), 5)
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        def call(d=d):
+            pose_alignment.ransac_align_poses_sim3_ignore_missing(ref, est, num_iters=RANSAC_ITERS, device=d)
+            torch.cuda.synchronize()
+        row[f"whole_ms_{where}"] = host_clock_ms(call)
+    log(f"phase 5: RANSAC times: batched fit+score device {row['errors_device_ms']:.4f} ms (host enqueue "
+        f"{row['errors_enqueue_ms']:.3f} ms); whole call "
+        f"(keep-mask draws, transfers, winner) card {row['whole_ms_card']:.3f} ms, CPU {row['whole_ms_cpu']:.3f} ms")
+    return row
+
+
+def stage_a_times(dev, floors) -> dict:
+    """Per floor: the batched product's device ms on pre-packed tables (all
+    three W/D/O types) and the host's time to enqueue it, and the host-clock
+    ms of the whole
+    `align_floor_pairs_batched` (packing, product, mask to the host, argwhere,
+    float64 refits, records) on the card and on the CPU; with the part of the
+    card's call up to the mask on the host, the rest being host work."""
+    import torch
+
+    from salve_tpu_torch.hypotheses import batched
+
+    ratio = torch.tensor(batched.MIN_ALLOWED_INFERRED_WDO_WIDTH_RATIO, dtype=torch.float32, device=dev)
+    rows = []
+    for seed, _, pano_dict, pairs in floors:
+        tables = {t: batched.floor_tables(pano_dict, pairs, t, dev) for t in batched._TYPES}
+        tables = {t: tb for t, tb in tables.items() if tb is not None}
+
+        def product():
+            return [batched._product_se2_fits(*tb, ratio, batched._NUM_CONFIGS[t]) for t, tb in tables.items()]
+
+        def to_mask():
+            for t in batched._TYPES:
+                tb = batched.floor_tables(pano_dict, pairs, t, dev)
+                if tb is not None:
+                    batched._product_se2_fits(*tb, ratio, batched._NUM_CONFIGS[t])[2].cpu()
+
+        def whole(d):
+            def fn():
+                batched.align_floor_pairs_batched(pano_dict, pairs, use_inferred_wdos_layout=True, device=d)
+                torch.cuda.synchronize()
+            return fn
+
+        n_hyps = sum(len(v) for v in batched.align_floor_pairs_batched(pano_dict, pairs, True, device=dev).values())
+        row = {"seed": seed, "hypotheses": n_hyps,
+               "product_device_ms": time_ms(product, rounds=7, per_round=1, sleep_cycles=STAGE_A_SLEEP_CYCLES),
+               "product_enqueue_ms": host_clock_ms(product, 5),
+               "to_mask_ms": host_clock_ms(to_mask, 5),
+               "whole_ms_card": host_clock_ms(whole(dev), 5),
+               "whole_ms_cpu": host_clock_ms(whole(torch.device("cpu")), 5)}
+        rows.append(row)
+        log(f"phase 5: Stage A floor {seed} times: product on the card {row['product_device_ms']:.4f} ms device, "
+            f"{row['product_enqueue_ms']:.3f} ms host enqueue; "
+            f"whole call card {row['whole_ms_card']:.3f} ms (to the mask on the host {row['to_mask_ms']:.3f} ms), "
+            f"CPU {row['whole_ms_cpu']:.3f} ms; {n_hyps} hypotheses")
+    n = sum(r["hypotheses"] for r in rows)
+    summary = {
+        "product_device_ms_median": statistics.median(r["product_device_ms"] for r in rows),
+        "product_enqueue_ms_median": statistics.median(r["product_enqueue_ms"] for r in rows),
+        "whole_ms_card_median": statistics.median(r["whole_ms_card"] for r in rows),
+        "whole_ms_cpu_median": statistics.median(r["whole_ms_cpu"] for r in rows),
+        "to_mask_ms_median": statistics.median(r["to_mask_ms"] for r in rows),
+        "hyp_per_s_card": n / (sum(r["whole_ms_card"] for r in rows) * 1e-3),
+        "hyp_per_s_cpu": n / (sum(r["whole_ms_cpu"] for r in rows) * 1e-3),
+        "floors": rows,
+    }
+    log(f"phase 5: Stage A per floor (median of {len(rows)}): product {summary['product_device_ms_median']:.4f} ms "
+        f"device, {summary['product_enqueue_ms_median']:.3f} ms host enqueue; whole call card {summary['whole_ms_card_median']:.3f} ms (to the mask "
+        f"{summary['to_mask_ms_median']:.3f} ms), CPU {summary['whole_ms_cpu_median']:.3f} ms; "
+        f"{summary['hyp_per_s_card']:.1f} hypotheses/s on the card, {summary['hyp_per_s_cpu']:.1f} on the CPU")
+    return summary
 
 
 def direct_batch_clouds(rng, depths, rgbs, n: int, render_cfg):
@@ -688,6 +941,9 @@ def main() -> int:
     bd = report["breakdown"]
     log(f"throughput: warp mode per score batch {report['batch'] * 1e3 / bd['score_batch']:.2f} hypotheses/s; "
         f"the banks cost {bd['banks_per_floor']:.3f} ms once per floor")
+    sa = report["stage_a"]["times"]
+    log(f"throughput: Stage A {sa['hyp_per_s_card']:.2f} hypotheses/s on the card, {sa['hyp_per_s_cpu']:.2f} on "
+        f"the CPU (align_floor_pairs_batched, host work included)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
             "shape",

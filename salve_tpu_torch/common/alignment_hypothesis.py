@@ -1,9 +1,9 @@
-"""Relative-pose hypothesis record produced by Stage A (copy of
-salve_tpu/common/alignment_hypothesis.py:AlignmentHypothesis)."""
+"""Relative-pose hypothesis record produced by Stage A (W/D/O alignment);
+a copy of salve_tpu/common/alignment_hypothesis.py."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 from salve_tpu_torch.geometry.sim2 import Sim2
 
@@ -24,3 +24,14 @@ class AlignmentHypothesis(NamedTuple):
     i1_wdo_idx: int
     i2_wdo_idx: int
     configuration: str
+
+
+def prune_to_unique_sim2_objs(
+    possible_alignment_info: List[AlignmentHypothesis],
+) -> List[AlignmentHypothesis]:
+    """Drop hypotheses whose Sim(2) duplicates an earlier one (order-preserving)."""
+    pruned: List[AlignmentHypothesis] = []
+    for hypothesis in possible_alignment_info:
+        if not any(hypothesis.i2Ti1 == kept.i2Ti1 for kept in pruned):
+            pruned.append(hypothesis)
+    return pruned

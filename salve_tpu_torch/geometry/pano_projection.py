@@ -1,9 +1,15 @@
-"""Equirectangular ray grid (port of salve_tpu/geometry/pano_projection.py)."""
+"""Equirectangular projection (port of salve_tpu/geometry/pano_projection.py).
+
+`get_uni_sphere_xyz` is torch, for the backprojection on the card. The
+pixel -> world-metric chain below it is a numpy copy of the reference's host
+path (the `xp=np` case), which the MHNet prediction loader uses.
+"""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from salve_tpu_torch.ops.numerics import div_const
@@ -29,3 +35,53 @@ def get_uni_sphere_xyz(H: int, W: int, device=None) -> torch.Tensor:
     y = c * torch.sin(u)
     x = c * torch.cos(u)
     return torch.stack([x, y, z], dim=-1)
+
+
+def pixel_to_sphere(points_pix: np.ndarray, width: int) -> np.ndarray:
+    """(N,2) pano pixel coords [x,y] -> spherical [theta, phi] on the unit sphere.
+
+    theta in [-pi, pi] (left edge -> right edge), phi in [-pi/2, pi/2]
+    (bottom -> top); [0, 0] is the image center. Height is width/2.
+    """
+    height = width / 2
+    x_arr = points_pix[..., 0]
+    y_arr = np.clip(points_pix[..., 1], 0, height - 1)
+
+    theta = x_arr / (width - 1) * (2.0 * math.pi) - math.pi
+    phi = (1.0 - y_arr / (height - 1)) * math.pi - math.pi / 2.0
+    return np.stack([theta, phi], axis=-1)
+
+
+def sphere_to_cartesian(points_sph: np.ndarray) -> np.ndarray:
+    """Spherical [theta, phi(, rho)] -> room-Cartesian [x, y, z] (left-handed).
+
+    The image center (theta=0, phi=0) maps to the +z axis direction.
+    """
+    theta = points_sph[..., 0]
+    phi = np.clip(points_sph[..., 1], -math.pi / 2, math.pi / 2)
+    rho = points_sph[..., 2] if points_sph.shape[-1] == 3 else np.ones_like(theta)
+
+    rho_cos_phi = rho * np.cos(phi)
+    x = rho_cos_phi * np.sin(theta)
+    y = rho * np.sin(phi)
+    z = rho_cos_phi * np.cos(theta)
+    return np.stack([x, y, z], axis=-1)
+
+
+def room_cartesian_to_worldmetric(cartesian_coordinates: np.ndarray, camera_height: float) -> np.ndarray:
+    """Intersect unit-sphere rays with the floor plane; output right-handed metric coords.
+
+    Rays scaled so the (downward) vertical component equals camera height;
+    axes permuted so z becomes vertical; x negated for handedness.
+    """
+    flipped = cartesian_coordinates * np.asarray([1.0, 1.0, -1.0])
+    y = flipped[..., 1:2]
+    world = flipped / y * camera_height
+    return np.stack([-world[..., 0], world[..., 2], world[..., 1]], axis=-1)
+
+
+def pixel_to_worldmetric(points_px: np.ndarray, image_width: int, camera_height_m: float) -> np.ndarray:
+    """Full chain pixel -> world-metric, valid for points on the floor."""
+    points_sph = pixel_to_sphere(points_px, width=image_width)
+    points_cartesian = sphere_to_cartesian(points_sph)
+    return room_cartesian_to_worldmetric(points_cartesian, camera_height_m)

@@ -76,6 +76,31 @@ def test_entry_points_raise_without_a_card(no_cuda, tmp_path):
         score_building_fused("0000", str(tmp_path), str(tmp_path), str(tmp_path), model, cfg, str(tmp_path))
 
 
+def test_stage_a_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    """Stage A's batched product, the exporter and the RANSAC alignment take
+    `device=None` as the card and raise without one, even on empty input."""
+    from salve_tpu_torch.algorithms.pose_alignment import (
+        align_poses_sim3_ignore_missing,
+        ransac_align_poses_sim3_ignore_missing,
+    )
+    from salve_tpu_torch.geometry.poses import Pose3
+    from salve_tpu_torch.hypotheses.batched import align_floor_pairs_batched
+    from salve_tpu_torch.hypotheses.export import export_single_building_wdo_alignment_hypotheses
+
+    poses = [Pose3(np.eye(3), np.array([float(i), 0.0, 0.0])) for i in range(6)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        align_floor_pairs_batched({}, [], use_inferred_wdos_layout=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ransac_align_poses_sim3_ignore_missing(poses, poses)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        align_poses_sim3_ignore_missing(poses, poses, device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_single_building_wdo_alignment_hypotheses(
+            str(tmp_path), "0000", str(tmp_path / "zind_data.json"), str(tmp_path), False)
+    assert align_floor_pairs_batched({}, [], use_inferred_wdos_layout=True, device="cpu") == {}
+    assert ransac_align_poses_sim3_ignore_missing(poses, poses, device="cpu")[1].s == pytest.approx(1.0)
+
+
 def test_cuda_wrappers_reject_cpu_tensors():
     """The CUDA launchers never run a plain version: CPU input raises."""
     cell = torch.zeros((1, 4), dtype=torch.int32)
