@@ -1,5 +1,5 @@
-"""Chip smoke: drive salve_tpu_torch's fused scoring path and Stage A on one
-CUDA card.
+"""Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A and Stage D
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -48,7 +48,27 @@ Phases:
      1000-iteration RANSAC Sim(3) alignment of one floor's poses (a known
      Sim(3), noise, outliers) on the card against its CPU run and the known
      transform; then the batched product's device ms per floor, and the
-     whole call's ms per floor and hypotheses/s on the card and on the CPU.
+     whole call's ms per floor and hypotheses/s on the card and on the CPU;
+  6. Stage D and the floor report on the same 8 floors: the GT-mode exporter
+     and seeded predictions (oracle labels, 15% of the positives and every
+     positive of one pano a floor below the 0.93 threshold, 3 confident false
+     positives) feed `run_incremental_reconstruction` in the frozen
+     configuration (pose2_slam, cluster rescue, no axis alignment, no
+     predictions root) on the card and on the CPU: per floor the % localized,
+     the top-2/3 component shares and the IoU must be equal, the pose errors
+     within 1e-6 and the serialized poses within 1e-9; in a pass of its own
+     on the card, each floor's LM call must return its input poses bit for
+     bit (the reference defect; seen through the interpreter's profile hook,
+     nothing of the port replaced); then one floor with
+     landmark SLAM and axis alignment on seeded MHNet predictions
+     (inferred-mode hypotheses), card against CPU; the LM alone on a
+     perturbed 16-pose graph with a nonzero prior (it moves), card against
+     CPU within 1e-9, and on a like graph with pose 0 at the identity (it
+     must return its input bit for bit on both); B1-B3 launch 0 times; then,
+     on the identity-prior graph, the LM's host enqueue ms, one iteration's
+     device ms, one Jacobian's operator calls and the whole run's summed
+     kernel ms (torch.profiler); `polygon_mask`'s device ms for one floor's
+     rooms; and the whole call's ms per floor on the card and the CPU.
 
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -87,6 +107,9 @@ DSMEM_BLOCK_CELLS = 15_688
 STAGE_A_SEEDS = tuple(range(8))
 STAGE_A_GRID = 4
 RANSAC_ITERS = 1000
+# Stage D's frozen configuration (salve_tpu/cli/end_to_end_eval.py:433-477).
+STAGE_D_THRESHOLD = 0.93
+STAGE_D_WDO_TYPES = ["door", "window", "opening"]
 # Sleep ahead of a timed Stage A round (about 60 ms): longer than the host
 # takes to enqueue the batched product's ~110 small kernels, so the events
 # bracket device time only.
@@ -397,6 +420,9 @@ def run(dev) -> dict:
 
     # -- Phase 5: Stage A ------------------------------------------------------
     report["stage_a"] = stage_a_phase(dev)
+
+    # -- Phase 6: Stage D and the report ----------------------------------------
+    report["stage_d"] = stage_d_phase(dev)
     return report
 
 
@@ -503,6 +529,21 @@ def stage_a_phase(dev) -> dict:
     return out
 
 
+def profiled_kernels(fn):
+    """(kernels, summed device ms) of one call of `fn`, from torch.profiler;
+    ms is None where CUPTI sees no kernel."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels), (sum(getattr(e, "device_time_total", 0) for e in kernels) / 1e3 if kernels else None)
+
+
 def ransac_check(dev, pano_dict) -> dict:
     """RANSAC Sim(3) alignment of one floor's GT poses seen through a known
     Sim(3), with noise, 3 outliers and a missing pose, on the card and on
@@ -544,7 +585,7 @@ def ransac_check(dev, pano_dict) -> dict:
     row = {"pose_diff_card_cpu": float(pose_diff), "rot_err_deg": rot_err_deg,
            "scale_err": abs(aSb.s - known.s), "trans_err": float(np.abs(aSb.t - known.t).max())}
     log(f"phase 5: RANSAC ({RANSAC_ITERS} iterations, {len(live) - 1} poses, 3 outliers): card vs CPU largest pose "
-        f"difference {pose_diff:.3e}; card vs the known Sim(3): rotation {rot_err_deg:.4f} deg, scale "
+        f"difference {pose_diff:.3e}, scorer outputs equal bit for bit; card vs the known Sim(3): rotation {rot_err_deg:.4f} deg, scale "
         f"{row['scale_err']:.4e}, translation {row['trans_err']:.4e}")
     if pose_diff > 1e-3 or rot_err_deg > 1.0 or row["scale_err"] > 0.02 * known.s:
         raise AssertionError(f"RANSAC alignment on the card is off: {row}")
@@ -553,15 +594,24 @@ def ransac_check(dev, pano_dict) -> dict:
     theta_b, cb, vb = pose_alignment._planar_params(est)
     keep = pose_alignment.ransac_keep_masks(va & vb, RANSAC_ITERS, pose_alignment.DEFAULT_RANSAC_ALIGNMENT_DELETE_FRAC, 0)
     args = [pose_alignment._f32(x, dev) for x in (theta_a, ca, theta_b, cb, va & vb, keep)]
-    row["errors_device_ms"] = time_ms(lambda: pose_alignment._ransac_errors(*args), rounds=7, per_round=1,
-                                      sleep_cycles=STAGE_A_SLEEP_CYCLES)
+    # The scorer's float32 outputs: the card's bits are the CPU's.
+    outs = [pose_alignment._ransac_errors(*a) for a in (args, [x.cpu() for x in args])]
+    for name, x, y in zip(("mean_rot", "mean_trans", "theta", "t", "s"), *outs):
+        if not torch.equal(x.cpu().view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(f"RANSAC scorer: {name} on the card differs from the CPU's")
+    if pose_diff != 0.0:
+        raise AssertionError(f"RANSAC: the card's aligned poses differ from the CPU's by {pose_diff}")
+    # More kernels than the launch queue holds: device time as the summed
+    # kernel time of one call (torch.profiler), enqueue on the host clock.
+    row["errors_kernels"], row["errors_device_ms"] = profiled_kernels(lambda: pose_alignment._ransac_errors(*args))
     row["errors_enqueue_ms"] = host_clock_ms(lambda: pose_alignment._ransac_errors(*args), 5)
     for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
         def call(d=d):
             pose_alignment.ransac_align_poses_sim3_ignore_missing(ref, est, num_iters=RANSAC_ITERS, device=d)
             torch.cuda.synchronize()
         row[f"whole_ms_{where}"] = host_clock_ms(call)
-    log(f"phase 5: RANSAC times: batched fit+score device {row['errors_device_ms']:.4f} ms (host enqueue "
+    log(f"phase 5: RANSAC times: batched fit+score {row['errors_kernels']} kernels, {row['errors_device_ms']:.4f} ms "
+        f"summed device time (host enqueue "
         f"{row['errors_enqueue_ms']:.3f} ms); whole call "
         f"(keep-mask draws, transfers, winner) card {row['whole_ms_card']:.3f} ms, CPU {row['whole_ms_cpu']:.3f} ms")
     return row
@@ -627,6 +677,296 @@ def stage_a_times(dev, floors) -> dict:
         f"{summary['to_mask_ms_median']:.3f} ms), CPU {summary['whole_ms_cpu_median']:.3f} ms; "
         f"{summary['hyp_per_s_card']:.1f} hypotheses/s on the card, {summary['hyp_per_s_cpu']:.1f} on the CPU")
     return summary
+
+
+def stage_d_inputs(root: Path, dev) -> dict:
+    """Phase 6's inputs under `root`: the 8 floors' buildings, GT-mode
+    hypotheses exported on the card and seeded predictions, one directory of
+    predictions a floor; and floor 0 again with seeded MHNet predictions,
+    vanishing angles and inferred-mode hypotheses."""
+    from salve_tpu_torch.dataset import seeded_predictions as sp
+    from salve_tpu_torch.hypotheses.export import export_single_building_wdo_alignment_hypotheses
+
+    floors = {}
+    for seed, building, _, _ in stage_a_floors():
+        bid = f"{seed:04d}"
+        (root / "zind" / bid).mkdir(parents=True)
+        annot = root / "zind" / bid / "zind_data.json"
+        annot.write_text(json.dumps(building))
+        export_single_building_wdo_alignment_hypotheses(str(root / "hyp"), bid, str(annot), str(root / "zind"),
+                                                        use_inferred_wdos_layout=False, device=dev)
+        sp.write_seeded_predictions(str(root / "hyp"), bid, sp.pano_image_paths(building),
+                                    str(root / "preds" / bid), seed=seed)
+        floors[bid] = building
+    bid, building = "0000", floors["0000"]
+    sp.write_seeded_mhnet_predictions(root / "mhnet", bid, building, 0)
+    sp.write_seeded_vanishing_angles(root / "mhnet", bid, building, 0)
+    export_single_building_wdo_alignment_hypotheses(
+        str(root / "hyp_inferred"), bid, str(root / "zind" / bid / "zind_data.json"), str(root / "zind"),
+        use_inferred_wdos_layout=True, mhnet_predictions_data_root=str(root / "mhnet"), device=dev)
+    sp.write_seeded_predictions(str(root / "hyp_inferred"), bid, sp.pano_image_paths(building),
+                                str(root / "preds_inferred"), seed=0)
+    return floors
+
+
+def compare_stage_d_runs(what: str, card, cpu, card_dir: Path, cpu_dir: Path) -> dict:
+    """Card against CPU for one `run_incremental_reconstruction` call: the
+    reports (equal, errors within 1e-6) and the serialized poses (1e-9)."""
+    import numpy as np
+
+    if len(card) != len(cpu) or not card:
+        raise AssertionError(f"{what}: {len(card)} reports on the card, {len(cpu)} on the CPU")
+    worst = {"errors": 0.0, "poses": 0.0}
+    for a, b in zip(card, cpu):
+        for k in ("building_id", "floor_id", "percent_panos_localized", "percent_in_top2_ccs",
+                  "percent_in_top3_ccs", "floorplan_iou"):
+            if getattr(a, k) != getattr(b, k):
+                raise AssertionError(f"{what}: {k} is {getattr(a, k)} on the card, {getattr(b, k)} on the CPU")
+        errs = [abs(a.avg_abs_rot_err - b.avg_abs_rot_err), abs(a.avg_abs_trans_err - b.avg_abs_trans_err),
+                float(np.max(np.abs(a.rotation_errors - b.rotation_errors))),
+                float(np.max(np.abs(a.translation_errors - b.translation_errors)))]
+        worst["errors"] = max(worst["errors"], *errs)
+    files = sorted(p.name for p in card_dir.glob("*.json"))
+    if not files or files != sorted(p.name for p in cpu_dir.glob("*.json")):
+        raise AssertionError(f"{what}: serialized poses {files} differ in their files")
+    for name in files:
+        a, b = (json.loads((d / name).read_text())["wSi_dict"] for d in (card_dir, cpu_dir))
+        if a.keys() != b.keys():
+            raise AssertionError(f"{what}: {name} holds other panos on the card")
+        for i in a:
+            for key in ("R", "t", "s"):
+                worst["poses"] = max(worst["poses"], float(np.max(np.abs(np.subtract(a[i][key], b[i][key])))))
+    if worst["errors"] > 1e-6 or worst["poses"] > 1e-9:
+        raise AssertionError(f"{what}: card and CPU differ: {worst}")
+    return worst
+
+
+def moving_lm_graph(seed: int = 3, n: int = 16):
+    """A floor-sized pose graph whose LM moves: measured relative poses from
+    true ones with noise, every initial pose (the prior's too) perturbed."""
+    import numpy as np
+
+    from salve_tpu_torch.algorithms.pose2_slam import OdometryMeasurement
+    from salve_tpu_torch.geometry.pose2 import Pose2
+
+    rng = np.random.default_rng(seed)
+    true = np.concatenate([rng.uniform(-8, 8, (n, 2)), rng.uniform(-np.pi, np.pi, (n, 1))], 1)
+    odo = []
+    for i1 in range(n):
+        for i2 in range(i1 + 1, n):
+            if rng.uniform() < 0.5:
+                rel = Pose2(*true[i2]).between(Pose2(*true[i1]))
+                odo.append(OdometryMeasurement(i1, i2, Pose2(rel.x + rng.normal(0, 0.02), rel.y + rng.normal(0, 0.02),
+                                                             rel.theta + rng.normal(0, 0.01))))
+    init = true + np.concatenate([rng.normal(0, 0.2, (n, 2)), rng.normal(0, 0.05, (n, 1))], 1)
+    return [Pose2(*p) for p in init], odo
+
+
+def lm_calls_of(fn) -> list:
+    """Run fn() and return (initial poses, result) of each `planar_slam`
+    call in it, as the interpreter's profile hook sees them return; nothing
+    of the port is replaced."""
+    from salve_tpu_torch.algorithms import pose2_slam
+
+    code, calls = pose2_slam.planar_slam.__code__, []
+
+    def hook(frame, event, arg):
+        if event == "return" and frame.f_code is code:
+            calls.append((frame.f_locals["wTi_list_init"], arg))
+
+    sys.setprofile(hook)
+    try:
+        fn()
+    finally:
+        sys.setprofile(None)
+    return calls
+
+
+def identity_prior_graph(seed: int = 4, n: int = 16):
+    """A moving_lm_graph with pose 0 at the identity, as the spanning tree puts
+    its origin: the prior's residual is exactly 0, so (as in salve_tpu) every
+    LM step is NaN and rejected, and the LM returns its input."""
+    from salve_tpu_torch.geometry.pose2 import Pose2
+
+    init, odo = moving_lm_graph(seed, n)
+    return [Pose2(0.0, 0.0, 0.0)] + init[1:], odo
+
+
+def lm_times(dev, graph) -> dict:
+    """The LM on one factor graph: its host enqueue ms (host clock, no sync:
+    the loop never waits for the card); the device ms of one iteration
+    (`lm_step`), CUDA events behind a sleep kernel longer than its enqueue,
+    median of 5 (a whole run launches more kernels than the card's launch
+    queue holds, so behind a sleep the host would block and the events would
+    see the host again); the operator calls of one Jacobian; and the
+    kernels' summed device time in one whole run, from torch.profiler."""
+    import torch
+
+    from salve_tpu_torch.algorithms import pose2_slam
+
+    tables, _, _ = pose2_slam.factor_tables(*graph, dev)
+    pose2_slam.lm_solve(*tables, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pose2_slam.lm_solve(*tables, True)
+    enqueue = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    prob, start = pose2_slam.lm_start(*tables, True)
+    one = time_ms(lambda: pose2_slam.lm_step(prob, *start), rounds=5, per_round=1,
+                  sleep_cycles=STAGE_A_SLEEP_CYCLES)
+    row = {"enqueue_ms": enqueue, "one_iteration_device_ms": one, "iterations": pose2_slam.MAX_LM_ITERS,
+           "poses": tables[0].shape[0], "between_factors": tables[2].shape[0], "landmark_factors": tables[4].shape[0]}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        prob.jacobian(start[0])
+        torch.cuda.synchronize()
+    row["jacobian_operator_calls"] = sum(e.count for e in prof.key_averages())
+    row["kernels"], row["kernel_ms"] = profiled_kernels(lambda: pose2_slam.lm_solve(*tables, True))
+    return row
+
+
+def stage_d_phase(dev) -> dict:
+    """Stage D on the card against the CPU, and times (module docstring, phase 6)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.algorithms import pose2_slam
+    from salve_tpu_torch.cli.run_sfm import run_incremental_reconstruction
+    from salve_tpu_torch.common import floor_reconstruction_report as fr
+    from salve_tpu_torch.common.posegraph2d import get_gt_pose_graph
+    from salve_tpu_torch.dataset.seeded_predictions import pano_image_paths
+    from salve_tpu_torch.ops.raster import polygon_mask
+    from salve_tpu_torch.utils import profiler
+
+    cpu = torch.device("cpu")
+    out = {}
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    device_mod.reset_launch_counts()
+    with tempfile.TemporaryDirectory(dir=repo / "build") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        floors = stage_d_inputs(root, dev)
+        log(f"phase 6: inputs for {len(floors)} floors (exporter on the card, seeded predictions) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def run(bid, d, tag, method="pose2_slam", **kw):
+            kw.setdefault("hypotheses_save_root", str(root / "hyp"))
+            kw.setdefault("serialized_preds_json_dir", str(root / "preds" / bid))
+            kw.setdefault("use_axis_alignment", False)
+            kw.setdefault("predictions_data_root", None)
+            plot_dir = root / "out" / f"{tag}_{bid}_{d.type}"
+            t = time.perf_counter()
+            reports = run_incremental_reconstruction(
+                raw_dataset_dir=str(root / "zind"), method=method, confidence_threshold=STAGE_D_THRESHOLD,
+                allowed_wdo_types=STAGE_D_WDO_TYPES, plot_save_dir=str(plot_dir), rescue_clusters=True,
+                device=d, **kw)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            return reports, (time.perf_counter() - t) * 1e3, Path(f"{plot_dir}_serialized")
+
+        run("0000", dev, "warmup")
+        rows, stage_times = [], {}
+        for side, d in (("card", dev), ("cpu", cpu)):
+            profiler.reset_stage_timers()
+            for bid in floors:
+                reports, ms, ser = run(bid, d, f"frozen_{side}")
+                rows.append({"floor": bid, "side": side, "ms": ms, "reports": reports, "dir": ser})
+            stage_times[side] = profiler.stage_summary()
+        # The LM adds nothing to the spanning tree (the reference defect): on
+        # the card, in a pass of its own, each floor's LM call returns its
+        # input poses bit for bit.
+        for bid in floors:
+            calls = lm_calls_of(lambda: run(bid, dev, "lm_check"))
+            if len(calls) != 1:
+                raise AssertionError(f"floor {bid}: {len(calls)} LM calls")
+            (init, (poses, _)), = calls
+            if [tuple(p) if p else None for p in poses] != [tuple(p) if p else None for p in init]:
+                raise AssertionError(f"floor {bid}: the LM on the card moved a spanning-tree pose")
+        out["floors"] = []
+        for bid in floors:
+            card, host = (next(r for r in rows if r["floor"] == bid and r["side"] == t) for t in ("card", "cpu"))
+            worst = compare_stage_d_runs(f"floor {bid}", card["reports"], host["reports"], card["dir"], host["dir"])
+            r = card["reports"][0]
+            row = {"floor": bid, "panos": len(pano_image_paths(floors[bid])),
+                   "localized_pct": r.percent_panos_localized, "top2_pct": r.percent_in_top2_ccs,
+                   "top3_pct": r.percent_in_top3_ccs, "iou": r.floorplan_iou, "rot_err_deg": r.avg_abs_rot_err,
+                   "trans_err_m": r.avg_abs_trans_err, "ms_card": card["ms"], "ms_cpu": host["ms"],
+                   "worst_error_diff": worst["errors"], "worst_pose_diff": worst["poses"]}
+            out["floors"].append(row)
+            log(f"phase 6: Stage D floor {bid}, {row['panos']} panos (frozen configuration): localized {r.percent_panos_localized:.2f}%, "
+                f"top-2/3 CCs {r.percent_in_top2_ccs:.2f}/{r.percent_in_top3_ccs:.2f}%, IoU {r.floorplan_iou:.6f}, "
+                f"rot {r.avg_abs_rot_err:.6f} deg, trans {r.avg_abs_trans_err:.6f} m; card = CPU (errors within "
+                f"{worst['errors']:.1e}, poses within {worst['poses']:.1e}); the LM returned the spanning-tree poses; "
+                f"whole call {card['ms']:.1f} ms card, {host['ms']:.1f} ms CPU")
+        out["stage_times"] = stage_times
+        log("phase 6: stage totals, card: " + ", ".join(f"{k} {v['total_s'] * 1e3:.1f} ms" for k, v in
+                                                         stage_times["card"].items())
+            + "; CPU: " + ", ".join(f"{k} {v['total_s'] * 1e3:.1f} ms" for k, v in stage_times["cpu"].items()))
+
+        # Landmark SLAM with axis alignment on floor 0's inferred-mode inputs.
+        kw = dict(hypotheses_save_root=str(root / "hyp_inferred"),
+                  serialized_preds_json_dir=str(root / "preds_inferred"), use_axis_alignment=True,
+                  predictions_data_root=str(root / "mhnet"))
+        (card, ms_card, dir_card), (host, ms_cpu, dir_cpu) = (
+            run("0000", d, f"landmarks_{side}", **kw) for side, d in (("card", dev), ("cpu", cpu)))
+        worst = compare_stage_d_runs("landmark SLAM", card, host, dir_card, dir_cpu)
+        out["landmarks"] = {"ms_card": ms_card, "ms_cpu": ms_cpu, "iou": card[0].floorplan_iou, **worst}
+        log(f"phase 6: landmark SLAM + axis alignment, floor 0000: IoU {card[0].floorplan_iou:.6f}, localized "
+            f"{card[0].percent_panos_localized:.2f}%; card = CPU (errors within {worst['errors']:.1e}, poses within "
+            f"{worst['poses']:.1e}); whole call {ms_card:.1f} ms card, {ms_cpu:.1f} ms CPU")
+
+        # The LM alone on a graph where it moves.
+        init, odo = moving_lm_graph()
+        (got, _), (want, _) = (pose2_slam.planar_slam(init, odo, {}, [], True, device=d) for d in (dev, cpu))
+        diff = float(np.max(np.abs(np.array(got) - np.array(want))))
+        moved = float(np.max(np.abs(np.array(got) - np.array(init))))
+        out["moving_lm"] = {"max_diff_card_cpu": diff, "max_move": moved}
+        log(f"phase 6: LM alone, {len(init)} poses, {len(odo)} between factors, nonzero prior: moved up to "
+            f"{moved:.4f}; card vs CPU max |diff| {diff:.3e}")
+        if diff > 1e-9 or moved < 0.05:
+            raise AssertionError(f"the moving LM: card vs CPU {diff}, moved {moved}")
+
+        init, odo = identity_prior_graph()
+        for d in (dev, cpu):
+            got, _ = pose2_slam.planar_slam(init, odo, {}, [], True, device=d)
+            if [tuple(p) for p in got] != [tuple(p) for p in init]:
+                raise AssertionError(f"the LM on the {d.type} moved a pose of an identity-prior graph")
+        log(f"phase 6: LM on an identity-prior graph ({len(init)} poses, {len(odo)} between factors): returns its "
+            f"input bit for bit on the card and the CPU, as salve_tpu's")
+
+        out["launches"] = device_mod.launch_counts()
+        log(f"phase 6: Stage D launches of B1-B3 (none on this path): {out['launches']}")
+        if any(out["launches"].values()):
+            raise AssertionError(f"Stage D launched a kernel of the scoring path: {out['launches']}")
+
+        # Times on the card's clock.
+        gt0 = get_gt_pose_graph("0000", "floor_01", str(root / "zind"))
+        t = out["lm_floor"] = lm_times(dev, (init, odo, {}, [], True))
+        log(f"phase 6: LM on the identity-prior graph ({t['poses']} poses, {t['between_factors']} between factors, "
+            f"{t['iterations']} iterations): {t['enqueue_ms']:.3f} ms host enqueue; one iteration "
+            f"{t['one_iteration_device_ms']:.4f} ms device; one Jacobian {t['jacobian_operator_calls']} operator calls; "
+            f"torch.profiler: {t['kernels']} kernels, {t['kernel_ms']} ms of kernel time in the whole run")
+        half_m = (500 / 2) * fr.IOU_EVAL_METERS_PER_PX
+        rooms = [(p.room_vertices_global_2d * gt0.scale_meters_per_coordinate + half_m) / fr.IOU_EVAL_METERS_PER_PX
+                 for p in gt0.nodes.values()]
+        v = np.zeros((len(rooms), 64, 2), np.float32)
+        for k, img in enumerate(rooms):
+            v[k, : len(img)] = img
+        counts = np.array([len(r) for r in rooms])
+        vt = torch.as_tensor(v, device=dev)
+        if not torch.equal(polygon_mask(vt, counts, 501, 501).cpu(), polygon_mask(vt.cpu(), counts, 501, 501)):
+            raise AssertionError("polygon_mask on the card differs from the CPU's")
+        out["polygon_mask_ms"] = time_ms(lambda: polygon_mask(vt, counts, 501, 501))
+        log(f"phase 6: polygon_mask, floor 0000's {len(rooms)} rooms at 501^2 (max {counts.max()} vertices): "
+            f"{out['polygon_mask_ms']:.4f} ms device; card = CPU")
+    out["ms_card_median"] = statistics.median(r["ms_card"] for r in out["floors"])
+    out["ms_cpu_median"] = statistics.median(r["ms_cpu"] for r in out["floors"])
+    log(f"phase 6: Stage D per floor (median of {len(out['floors'])}): whole call {out['ms_card_median']:.1f} ms "
+        f"on the card, {out['ms_cpu_median']:.1f} ms on the CPU")
+    return out
 
 
 def direct_batch_clouds(rng, depths, rgbs, n: int, render_cfg):
@@ -944,6 +1284,10 @@ def main() -> int:
     sa = report["stage_a"]["times"]
     log(f"throughput: Stage A {sa['hyp_per_s_card']:.2f} hypotheses/s on the card, {sa['hyp_per_s_cpu']:.2f} on "
         f"the CPU (align_floor_pairs_batched, host work included)")
+    sd = report["stage_d"]
+    log(f"throughput: Stage D frozen configuration {sd['ms_card_median']:.1f} ms a floor on the card, "
+        f"{sd['ms_cpu_median']:.1f} ms on the CPU (run_incremental_reconstruction, median of "
+        f"{len(sd['floors'])} floors)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
             "shape",

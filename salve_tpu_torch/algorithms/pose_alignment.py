@@ -17,6 +17,22 @@ The fits run in float32, as the reference's do (it hands float64 numpy to
 JAX with 64-bit mode off). The keep-masks come from the same
 `np.random.default_rng(seed)` draws, so both see the same hypotheses; the
 winner is picked on the host by the reference's sequential rule.
+
+The winner is chaotic where the estimated poses are near-exact (a floor
+chained from oracle relative poses): every hypothesis's mean rotation error
+is then a few float32 ulps of an angle, and an ulp anywhere can hand the
+sequential rule another iteration, whose translation, scale and floorplan
+IoU differ visibly. So the float32 arithmetic here is the reference's as
+XLA:CPU compiles it, op for op, and gives the same bits on every device:
+sin, cos and atan2 are glibc's (`ops/libm.py`); each sum over the poses
+adds in the order XLA's compiled loop adds it at that pose count
+(`ops/xla_sum.py`), and each 3-vector sum in index order; where XLA fuses a
+product into the add or subtract that consumes it, the port takes one FMA
+(`fma_f32_exact`); the jitted hypothesis scorer's rewrite of
+(sum / count) / scale into sum / (count * scale) is kept; and sqrt is
+IEEE's (`_sqrt`). The single fit outside the jit
+(`align_poses_sim3_ignore_missing`) runs op by op in the reference, so
+there products are rounded before they are summed.
 """
 
 from __future__ import annotations
@@ -29,9 +45,14 @@ import torch
 
 from salve_tpu_torch.device import DeviceLike, resolve_device
 from salve_tpu_torch.geometry.poses import Pose3, Sim3, rotation_angle_deg
-from salve_tpu_torch.geometry.sim2_batch import matvec
+from salve_tpu_torch.ops.libm import atan2f, cosf, sinf
+from salve_tpu_torch.ops.numerics import fma_f32_exact
+from salve_tpu_torch.ops.xla_sum import ordered_sum, ransac_plans
 
 DEFAULT_RANSAC_ALIGNMENT_DELETE_FRAC = 0.33
+# jnp.rad2deg's float32 factor, and the degenerate-scale threshold in float32.
+_RAD2DEG = float(np.float32(180.0 / np.pi))
+_SCALE_EPS = float(np.float32(1e-9))
 
 
 def _planar_params(poses: List[Optional[Pose3]]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -53,9 +74,32 @@ def _f32(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """IEEE float32 sqrt. Torch's float32 sqrt on the CPU is off by an ulp
+    in about 18% of inputs; a float64 root within a few ulps rounds to the
+    correct float32 one, since a float32's root stays 2^-50 (relative) away
+    from every float32 rounding midpoint."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, fused: bool = True) -> torch.Tensor:
+    """sum_j a[..., j] * b[..., j] in index order: an FMA chain (XLA's dot
+    and fused reductions), or rounded products and adds (`fused=False`)."""
+    a, b = torch.broadcast_tensors(a, b)
+    acc = a[..., 0] * b[..., 0]
+    for j in range(1, a.shape[-1]):
+        acc = fma_f32_exact(a[..., j], b[..., j], acc) if fused else acc + a[..., j] * b[..., j]
+    return acc
+
+
+def _matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(..., i, j) @ (..., j) -> (..., i), as XLA:CPU's dot."""
+    return _dot(A, x[..., None, :])
+
+
 def _planar_rotation(theta: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) rotations about +z by `theta`."""
-    c, s_ = torch.cos(theta), torch.sin(theta)
+    c, s_ = cosf(theta), sinf(theta)
     zero, one = torch.zeros_like(c), torch.ones_like(c)
     return torch.stack(
         [
@@ -65,6 +109,13 @@ def _planar_rotation(theta: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def _scale(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    one = torch.ones_like(den)
+    scale = torch.where(den > 0, num / torch.where(den > 0, den, one), one)
+    # Degenerate single-point / collapsed hypotheses: fall back to scale 1.
+    return torch.where(torch.abs(scale) < _SCALE_EPS, one, scale)
 
 
 def _fit_planar_sim3(
@@ -77,24 +128,22 @@ def _fit_planar_sim3(
     """Masked closed-form planar Sim(3) fit aSb with p_a = s (R p_b + t).
 
     Broadcasts over leading hypothesis dims; w is the per-camera weight/mask.
-    Returns (theta, t(3,), s).
+    Returns (theta, t(3,), s), rounded as the reference's op-by-op fit.
     """
-    wsum = torch.sum(w, dim=-1)
+    wsum = ordered_sum(w, -1)
     dtheta = theta_a - theta_b
     # Circular mean of angle differences.
-    theta = torch.atan2(torch.sum(w * torch.sin(dtheta), dim=-1), torch.sum(w * torch.cos(dtheta), dim=-1))
+    theta = atan2f(ordered_sum(w * sinf(dtheta), -1), ordered_sum(w * cosf(dtheta), -1))
     R = _planar_rotation(theta)
-    ca_cent = torch.sum(ca * w[..., None], dim=-2) / wsum[..., None]
-    cb_cent = torch.sum(cb * w[..., None], dim=-2) / wsum[..., None]
+    ca_cent = ordered_sum(ca * w[..., None], -2) / wsum[..., None]
+    cb_cent = ordered_sum(cb * w[..., None], -2) / wsum[..., None]
     da = ca - ca_cent[..., None, :]
     db = cb - cb_cent[..., None, :]
-    Rdb = matvec(R[..., None, :, :], db)
-    num = torch.sum(w * torch.sum(da * Rdb, dim=-1), dim=-1)
-    den = torch.sum(w * torch.sum(db * db, dim=-1), dim=-1)
-    scale = torch.where(den > 0, num / torch.where(den > 0, den, torch.ones_like(den)), torch.ones_like(den))
-    # Degenerate single-point / collapsed hypotheses: fall back to scale 1.
-    scale = torch.where(torch.abs(scale) < 1e-9, torch.ones_like(scale), scale)
-    t = ca_cent / scale[..., None] - matvec(R, cb_cent)
+    Rdb = _matvec(R[..., None, :, :], db)
+    num = ordered_sum(w * _dot(da, Rdb, fused=False), -1)
+    den = ordered_sum(w * _dot(db, db, fused=False), -1)
+    scale = _scale(num, den)
+    t = ca_cent / scale[..., None] - _matvec(R, cb_cent)
     return theta, t, scale
 
 
@@ -115,18 +164,33 @@ def _ransac_errors(
     shrinks every residual) beat an outlier-free fit.
 
     Returns per-hypothesis (mean_rot_err_deg, mean_trans_err, theta, t, s).
+    The float32 rounding is the jitted reference's on XLA:CPU (module
+    docstring): its fusions turn each product that feeds a sum into an FMA,
+    and t's (sum / count) / scale into sum / (count * scale).
     """
-    w = keep_masks * valid[None, :]
-    theta, t, s = _fit_planar_sim3(theta_a[None, :], ca[None, :, :], theta_b[None, :], cb[None, :, :], w)
+    plan = ransac_plans(theta_a.shape[0]).get
+    w = keep_masks * valid[None, :]  # (H, N), 0 or 1: products with w are exact
+    nkept = ordered_sum(w, -1)
+    dtheta = theta_a - theta_b
+    theta = atan2f(ordered_sum(w * sinf(dtheta), -1, plan("S")), ordered_sum(w * cosf(dtheta), -1, plan("C")))
+    R = _planar_rotation(theta)  # (H, 3, 3)
+    ca_sum = ordered_sum(ca[None, :, :] * w[..., None], -2, plan("ca"))
+    cb_cent = ordered_sum(cb[None, :, :] * w[..., None], -2, plan("cb")) / nkept[:, None]
+    ca_cent = ca_sum / nkept[:, None]
+    db = cb[None, :, :] - cb_cent[:, None, :]
+    Rdb = _matvec(R[:, None, :, :], db)
+    num = ordered_sum(w * _dot(ca[None, :, :] - ca_cent[:, None, :], Rdb), -1, plan("num"))
+    den = ordered_sum(w * _dot(db, db), -1, plan("den"))
+    s = _scale(num, den)
+    t = ca_sum / (nkept * s)[:, None] - _matvec(R, cb_cent)
     # Evaluate against the kept poses of each hypothesis.
-    dtheta = theta_a[None, :] - theta_b[None, :] - theta[:, None]
-    rot_err = torch.abs(torch.rad2deg(torch.atan2(torch.sin(dtheta), torch.cos(dtheta))))
-    R = _planar_rotation(theta)
-    cb_in_a = s[:, None, None] * (matvec(R[:, None, :, :], cb[None, :, :]) + t[:, None, :])
-    trans_err = torch.linalg.norm(ca[None, :, :] - cb_in_a, dim=-1)
-    nkept = torch.sum(w, dim=-1)
-    mean_rot = torch.sum(rot_err * w, dim=-1) / nkept
-    mean_trans = torch.sum(trans_err * w, dim=-1) / nkept
+    dtheta = dtheta[None, :] - theta[:, None]
+    rot_err = torch.abs(atan2f(sinf(dtheta), cosf(dtheta)) * _RAD2DEG)
+    Rcb = _matvec(R[:, None, :, :], cb[None, :, :])
+    diff = fma_f32_exact(-s[:, None, None], Rcb + t[:, None, :], ca[None, :, :])
+    trans_err = _sqrt(_dot(diff, diff))
+    mean_rot = ordered_sum(rot_err * w, -1, plan("rot")) / nkept
+    mean_trans = ordered_sum(trans_err * w, -1, plan("trans")) / nkept
     return mean_rot, mean_trans, theta, t, s
 
 

@@ -6,21 +6,25 @@ batch_{i}.json contract is written, with fp0/fp1 in the exact BEV filename
 grammar Stage D parses back.
 
 Checkpoints: a reference `train_ckpt.pth` (loaded natively, models/weights.py)
-or a state_dict of the port's model saved with `torch.save` (`.pt`).
+or a state_dict of the port's model saved with `torch.save` (`.pt`). The
+parser is the standard library's argparse (`main(argv)`), with the JAX
+package's flags.
 """
 
 from __future__ import annotations
 
+import argparse
 import glob
 import json
 import logging
 import os
 import time
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
-import click
 import numpy as np
+
+from salve_tpu_torch.cli.args import existing_path
 
 logger = logging.getLogger(__name__)
 
@@ -180,28 +184,36 @@ def load_verifier(ckpt_fpath: str, cfg):
     return model
 
 
-@click.command(
-    help="Fused render+verify inference: hypotheses -> batch_{i}.json, no image files."
-)
-@click.option("--hypotheses_save_root", type=click.Path(exists=True), required=True)
-@click.option("--raw_dataset_dir", type=click.Path(exists=True), required=True)
-@click.option("--depth_save_root", type=str, required=True)
-@click.option("--ckpt_fpath", type=click.Path(exists=True), required=True,
-              help="Reference train_ckpt.pth, or a state_dict of the port's model (.pt).")
-@click.option("--serialization_save_dir", type=str, required=True)
-@click.option("--building_id", type=str, default=None,
-              help="Single building (default: every building with hypotheses).")
-@click.option("--num_layers", type=int, default=152)
-@click.option("--resize_px", type=int, default=234)
-@click.option("--crop_px", type=int, default=224)
-@click.option("--batch_size", type=int, default=32)
-@click.option("--use_warp_renders/--no_warp_renders", default=None,
-              help="Render pano 1 per hypothesis as a Sim(2) warp of an extended "
-                   "identity bank instead of a fresh splat. Default: on for CUDA, "
-                   "off on the CPU.")
-@click.option("--append_pair_difference", is_flag=True, default=False,
-              help="Checkpoint was trained with explicit per-pair difference channels.")
-@click.option("--device", type=str, default="cuda", help="cuda (default) or cpu.")
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Fused render+verify inference: hypotheses -> batch_{i}.json, no image files.")
+    p.add_argument("--hypotheses_save_root", type=existing_path, required=True)
+    p.add_argument("--raw_dataset_dir", type=existing_path, required=True)
+    p.add_argument("--depth_save_root", type=str, required=True)
+    p.add_argument("--ckpt_fpath", type=existing_path, required=True,
+                   help="Reference train_ckpt.pth, or a state_dict of the port's model (.pt).")
+    p.add_argument("--serialization_save_dir", type=str, required=True)
+    p.add_argument("--building_id", type=str, default=None,
+                   help="Single building (default: every building with hypotheses).")
+    p.add_argument("--num_layers", type=int, default=152)
+    p.add_argument("--resize_px", type=int, default=234)
+    p.add_argument("--crop_px", type=int, default=224)
+    p.add_argument("--batch_size", type=int, default=32)
+    warp = p.add_mutually_exclusive_group()
+    warp.add_argument("--use_warp_renders", dest="use_warp_renders", action="store_true", default=None,
+                      help="Render pano 1 per hypothesis as a Sim(2) warp of an extended identity bank "
+                           "instead of a fresh splat. Default: on for CUDA, off on the CPU.")
+    warp.add_argument("--no_warp_renders", dest="use_warp_renders", action="store_false", default=None)
+    p.add_argument("--append_pair_difference", action="store_true",
+                   help="Checkpoint was trained with explicit per-pair difference channels.")
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu.")
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    run_test_fused(**vars(build_parser().parse_args(argv)))
+
+
 def run_test_fused(
     hypotheses_save_root, raw_dataset_dir, depth_save_root, ckpt_fpath,
     serialization_save_dir, building_id, num_layers, resize_px, crop_px,
@@ -238,4 +250,4 @@ def run_test_fused(
 
 
 if __name__ == "__main__":
-    run_test_fused()
+    main()

@@ -1,4 +1,7 @@
-"""Float32 arithmetic that reproduces the JAX package's compiled numerics."""
+"""Float32 arithmetic that reproduces the JAX package's compiled numerics.
+
+See also `ops/libm.py` for float32 sin, cos and atan2.
+"""
 
 from __future__ import annotations
 
@@ -32,3 +35,22 @@ def fma_f32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
     b64 = float(np.float32(b))
     c64 = float(np.float32(c))
     return (a.to(torch.float64) * b64 + c64).to(torch.float32)
+
+
+def fma_f32_exact(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c of three tensors, rounded once, on every device.
+
+    The product of two float32 values is exact in float64. The float64 sum
+    is rounded to odd (its error from a two-sum moves an even result one
+    ulp toward the exact value), which makes the final float32 rounding
+    equal to a single rounding of a * b + c.
+    """
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)

@@ -1,9 +1,11 @@
 """Rules of the PyTorch port: no JAX, the card by default, no hidden fallback.
 
-Every `salve_tpu_torch` module and `chip_smoke.py` import neither jax, flax
-nor optax nor any `salve_tpu` module; entry points given no device run on
-the CUDA card and raise without one; each CUDA kernel wrapper launches its
-kernel or raises, and takes the plain version only for CPU tensors.
+Every `salve_tpu_torch` module and `chip_smoke.py` import neither jax, flax,
+optax, networkx nor click nor any `salve_tpu` module; the CLIs start with
+only the standard library, torch, numpy and scipy; entry points given no
+device run on the CUDA card and raise without one; each CUDA kernel wrapper
+launches its kernel or raises, and takes the plain version only for CPU
+tensors.
 """
 
 import ast
@@ -17,7 +19,10 @@ from salve_tpu_torch import device as device_mod
 from salve_tpu_torch.ops import fill, kernels, splat, warp
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "salve_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "salve_tpu", "networkx", "click")
+# Packages the card's machine lacks: the CLIs must start without them.
+ABSENT_ON_THE_CARD = ("jax", "flax", "optax", "salve_tpu", "networkx", "click", "matplotlib", "imageio", "PIL",
+                      "cv2", "sklearn")
 
 
 def _port_files():
@@ -45,6 +50,51 @@ def test_port_imports_no_jax_and_no_reference_package():
             if root in FORBIDDEN:
                 bad.append(f"{f.relative_to(REPO)}: {name}")
     assert not bad, bad
+
+
+def test_clis_start_without_packages_the_card_lacks():
+    """Each CLI prints its help in a process where the packages the card's
+    machine lacks are absent."""
+    import subprocess
+    import sys
+
+    # A None entry in sys.modules is how Python sees a package that is not
+    # installed: import raises ImportError and importlib.util.find_spec
+    # returns None (torch probes optional packages that way).
+    script = (
+        "import importlib, sys\n"
+        f"sys.modules.update(dict.fromkeys({ABSENT_ON_THE_CARD!r}))\n"
+        "importlib.import_module(sys.argv[1]).main(['--help'])\n"
+    )
+    for cli in ("run_sfm", "export_alignment_hypotheses", "test_fused"):
+        out = subprocess.run([sys.executable, "-c", script, f"salve_tpu_torch.cli.{cli}"], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert "usage:" in out.stdout and "--device" in out.stdout
+
+
+def test_cli_flags_parse_as_the_click_clis_did(tmp_path):
+    """click's bool words, a tri-state warp flag, and paths that must exist."""
+    from salve_tpu_torch.cli import run_sfm, test_fused
+    from salve_tpu_torch.cli.args import boolean
+
+    assert [boolean(v) for v in ("True", "yes", "1", "on", "t")] == [True] * 5
+    assert [boolean(v) for v in ("false", "NO", "0", "off", "F")] == [False] * 5
+    d = str(tmp_path)
+    base = ["--hypotheses_save_root", d, "--raw_dataset_dir", d, "--depth_save_root", d, "--ckpt_fpath", d,
+            "--serialization_save_dir", d]
+    parser = test_fused.build_parser()
+    assert parser.parse_args(base).use_warp_renders is None
+    assert parser.parse_args(base + ["--use_warp_renders"]).use_warp_renders is True
+    assert parser.parse_args(base + ["--no_warp_renders"]).use_warp_renders is False
+    sfm = ["--serialized_preds_json_dir", d, "--raw_dataset_dir", d, "--hypotheses_save_root", d,
+           "--method", "pgo"]
+    args = run_sfm.build_parser().parse_args(sfm + ["--rescue_clusters", "yes"])
+    assert (args.use_axis_alignment, args.rescue_clusters, args.confidence_threshold, args.device) == \
+        (True, True, 0.93, "cuda")
+    for bad in (["--rescue_clusters", "maybe"], ["--mhnet_predictions_data_root", d + "/absent"]):
+        with pytest.raises(SystemExit):
+            run_sfm.build_parser().parse_args(sfm + bad)
 
 
 @pytest.fixture
@@ -99,6 +149,31 @@ def test_stage_a_entry_points_raise_without_a_card(no_cuda, tmp_path):
             str(tmp_path), "0000", str(tmp_path / "zind_data.json"), str(tmp_path), False)
     assert align_floor_pairs_batched({}, [], use_inferred_wdos_layout=True, device="cpu") == {}
     assert ransac_align_poses_sim3_ignore_missing(poses, poses, device="cpu")[1].s == pytest.approx(1.0)
+
+
+def test_stage_d_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    """Stage D's LM, report, raster and `run_incremental_reconstruction`
+    take `device=None` as the card and raise without one, even on empty
+    input."""
+    from salve_tpu_torch.algorithms.pose2_slam import execute_planar_slam, planar_slam
+    from salve_tpu_torch.cli.run_sfm import run_incremental_reconstruction
+    from salve_tpu_torch.common.floor_reconstruction_report import FloorReconstructionReport, rasterize_room
+    from salve_tpu_torch.common.posegraph2d import PoseGraph2d
+
+    empty = PoseGraph2d("0000", "floor_01", {}, 1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        planar_slam([None], [], {}, [], True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        execute_planar_slam([], [None])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FloorReconstructionReport.from_est_floor_pose_graph(empty, empty)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rasterize_room(empty, 1.0, 10, 0.1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_incremental_reconstruction(str(tmp_path), str(tmp_path), str(tmp_path), "pose2_slam", 0.93, False,
+                                       ["door"], None, plot_save_dir=str(tmp_path / "out"))
+    assert planar_slam([None], [], {}, [], True, device="cpu") == ([None], {})
+    assert not rasterize_room(empty, 1.0, 10, 0.1, device="cpu").any()
 
 
 def test_cuda_wrappers_reject_cpu_tensors():

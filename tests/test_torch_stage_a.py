@@ -18,14 +18,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from click.testing import CliRunner
 
 from salve_tpu.common.pano_data import FloorData as JaxFloorData
 from salve_tpu.hypotheses import batched as jbatched
 from salve_tpu.hypotheses import export as jexport
-from salve_tpu_torch.cli.export_alignment_hypotheses import run_export_alignment_hypotheses
+from salve_tpu_torch.cli.export_alignment_hypotheses import main as export_main
 from salve_tpu_torch.common.pano_data import FloorData
 from salve_tpu_torch.dataset import procedural
+from salve_tpu_torch.dataset.seeded_predictions import write_seeded_mhnet_predictions
 from salve_tpu_torch.hypotheses import batched, export, wdo_alignment
 from salve_tpu_torch.hypotheses.wdo_alignment import (
     MIN_ALLOWED_GT_WDO_WIDTH_RATIO,
@@ -166,40 +166,9 @@ def test_exporter_gt_mode_writes_salve_tpu_bytes(tmp_path, capsys):
 
 
 def _write_predictions(root: pathlib.Path, bid: str, building, seed: int) -> None:
-    """Seeded MHNet prediction JSONs, one per pano of the building: a smooth
-    floor boundary below the horizon, and 0-3 spans of each W/D/O type, with
-    one opening split by the pano seam now and then."""
-    rng = np.random.default_rng(seed)
-    out = root / "horizon_net" / bid
-    out.mkdir(parents=True)
-    for complete in building["merger"]["floor_01"].values():
-        for partial_name, partial in complete.items():
-            for pano in partial.values():
-                stem = pathlib.Path(pano["image_path"]).stem
-                u = np.linspace(0, 2 * np.pi, 1024)
-                boundary = 330 + 40 * np.sin(u * rng.integers(1, 4) + rng.uniform(0, 6)) + rng.normal(0, 2, 1024)
-                feats = {}
-                for kind in ("door", "window", "opening"):
-                    spans = []
-                    for _ in range(rng.integers(0, 4)):
-                        s = rng.uniform(0.02, 0.9)
-                        spans.append([s, s + rng.uniform(0.02, 0.08)])
-                    feats[kind] = spans
-                if rng.uniform() < 0.3:
-                    feats["opening"] += [[0.001, 0.04], [0.96, 1.0]]
-                pred = {
-                    "image_height": 512,
-                    "image_width": 1024,
-                    "room_shape": {
-                        "corners_in_uv": rng.uniform(0, 1, (8, 2)).tolist(),
-                        "raw_predictions": {
-                            "floor_boundary": boundary.tolist(),
-                            "floor_boundary_uncertainty": np.zeros(1024).tolist(),
-                        },
-                    },
-                    "wall_features": feats,
-                }
-                (out / f"{stem}.json").write_text(json.dumps({"predictions": pred}))
+    """Seeded MHNet prediction JSONs, one per pano
+    (`salve_tpu_torch/dataset/seeded_predictions.py`)."""
+    write_seeded_mhnet_predictions(root, bid, building, seed)
 
 
 def test_exporter_inferred_mode_writes_salve_tpu_bytes(tmp_path, capsys):
@@ -228,11 +197,10 @@ def test_cli_gt_mode_on_the_cpu_writes_salve_tpu_bytes(tmp_path):
     seed, kwargs = BUILDINGS[2]
     bid = f"{seed:04d}"
     annot = _write_building(raw, bid, procedural.generate_building_json(seed=seed, **kwargs))
-    result = CliRunner().invoke(run_export_alignment_hypotheses, [
+    export_main([
         "--raw_dataset_dir", str(raw), "--num_processes", "1", "--hypotheses_save_root", str(tmp_path / "port"),
         "--wdo_source", "ground_truth", "--split", "test", "--building_id", bid, "--device", "cpu",
     ])
-    assert result.exit_code == 0, result.output
     jexport.export_single_building_wdo_alignment_hypotheses(str(tmp_path / "ref"), bid, annot, str(raw), False)
     port, ref = _tree(tmp_path / "port"), _tree(tmp_path / "ref")
     assert len(port) > 100 and port == ref
