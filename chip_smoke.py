@@ -1,5 +1,5 @@
-"""Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A and Stage D
-on one CUDA card.
+"""Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A, Stage D
+and stitching on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,13 @@ outside a checkout of the repository.
 
 Phases:
   1. build the three CUDA kernels from `salve_tpu_torch/csrc` (timed), and
-     print how many blocks B1's cooperative launch takes;
+     print how many blocks B1's cooperative launch takes; the image readers
+     (salve_tpu_torch/native): print what the machine offers for a JPEG
+     decode (find_library, ldconfig, libjpeg's headers and version); where
+     the libjpeg shim builds, the committed JPEG fixtures must decode to
+     the sha256 of imageio's arrays, and where it does not the run says so;
+     the PNG fixtures must always; then the host ms of a 512x1024 u16 depth
+     PNG of Average and Paeth rows, C unfilter against the plain one;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (4 synthetic 512x1024 panos; 501^2 renders, 1001^2
      warp banks, 32 hypotheses): B1 splat (ceiling and floor at 4x501^2 and
@@ -69,6 +75,16 @@ Phases:
      device ms, one Jacobian's operator calls and the whole run's summed
      kernel ms (torch.profiler); `polygon_mask`'s device ms for one floor's
      rooms; and the whole call's ms per floor on the card and the CPU.
+  7. stitching on phase 6's 8 floors and their serialized card poses, with
+     layouts seeded from the true rooms (`dataset/seeded_stitching.py`,
+     nonzero uncertainties) and, for floor 0, phase 6's seeded MHNet files:
+     `stitch_building_layouts` and `stitch_clusters` (two clusters a floor,
+     scored against a ZInD floor map) on the card and on the CPU must give
+     the same room groups in the same order, every fused ring bit for bit
+     and equal score.json values; B1-B3 launch 0 times; then, for floor 0,
+     the grids and edge counts the raster saw (through the interpreter's
+     profile hook) and the call's summed kernel ms (torch.profiler), and the
+     whole calls' ms per floor on the card and the CPU.
 
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -77,10 +93,13 @@ and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -222,6 +241,7 @@ def run(dev) -> dict:
     kernels.check(lib.lib.salve_splat_max_blocks(ctypes.addressof(blocks)), "B1 blocks")
     report["b1_blocks"] = blocks.value
     log(f"phase 1: B1's cooperative launch: {blocks.value} blocks of 512 threads")
+    report["image_io"] = image_io_phase()
 
     # -- Phase 2: kernels against their plain versions ----------------------
     depths_np, rgbs_np = make_synthetic_pano_bank(n_panos, pano_h, pano_w, seed=0)
@@ -421,9 +441,81 @@ def run(dev) -> dict:
     # -- Phase 5: Stage A ------------------------------------------------------
     report["stage_a"] = stage_a_phase(dev)
 
-    # -- Phase 6: Stage D and the report ----------------------------------------
-    report["stage_d"] = stage_d_phase(dev)
+    # -- Phases 6 and 7: Stage D and the report, then stitching on its poses ---
+    repo = Path(__file__).resolve().parent
+    (repo / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=repo / "build") as tmp:
+        report["stage_d"] = stage_d_phase(dev, Path(tmp))
+        report["stitching"] = stitching_phase(dev, Path(tmp))
     return report
+
+
+def image_io_phase() -> dict:
+    """Phase 1's image readers (salve_tpu_torch/native): what the machine
+    offers for a JPEG decode; the committed fixtures' arrays against the
+    sha256 of imageio's (recorded on a machine with imageio), for the JPEG
+    decode where it is bound and always for the PNG reader; and the host
+    ms of a 512x1024 u16 depth-PNG read of Average and Paeth rows, through
+    the C unfilter and the plain one."""
+    import ctypes.util
+
+    import numpy as np
+
+    from salve_tpu_torch.native import jpeg, png
+
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+    headers = [h for h in ("/usr/include/jpeglib.h", "/usr/include/turbojpeg.h", f"{cuda_home}/include/jpeglib.h",
+                           f"{cuda_home}/include/turbojpeg.h") if os.path.exists(h)]
+    versions = []
+    for conf in ("/usr/include/jconfig.h", "/usr/include/x86_64-linux-gnu/jconfig.h"):
+        if os.path.exists(conf):
+            versions += [ln.strip() for ln in open(conf)
+                         if ln.startswith("#define") and ("JPEG_LIB_VERSION" in ln or "LIBJPEG_TURBO_VERSION" in ln)]
+    out = {"find_library_jpeg": ctypes.util.find_library("jpeg"),
+           "find_library_turbojpeg": ctypes.util.find_library("turbojpeg"),
+           "ldconfig_jpeg": [ln.strip() for ln in ldconfig.splitlines() if "jpeg" in ln.lower()],
+           "headers": headers, "versions": versions}
+    log(f"phase 1: libjpeg probe: {json.dumps(out)}")
+
+    fixtures = Path(jpeg.__file__).parent / "fixtures"
+    record = json.loads((fixtures / "imageio_sha256.json").read_text())
+    try:
+        jpeg.decode_jpeg_bytes((fixtures / "gray_31x47.jpg").read_bytes())
+        out["jpeg_bound"], why = True, ""
+    except RuntimeError as err:
+        out["jpeg_bound"], why = False, str(err).splitlines()[0]
+    checked = []
+    for name, want in sorted(record.items()):
+        if name.endswith(".jpg") and not out["jpeg_bound"]:
+            continue
+        arr = (jpeg.decode_jpeg if name.endswith(".jpg") else png.read_png)(fixtures / name)
+        got = {"shape": list(arr.shape), "dtype": str(arr.dtype), "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+        if got != want:
+            raise AssertionError(f"fixture {name}: {got} is not imageio's {want}")
+        checked.append(name)
+    out["fixtures_checked"] = checked
+    if out["jpeg_bound"]:
+        log(f"phase 1: JPEG decode bound; {len(checked)} fixtures equal imageio's arrays (sha256): {checked}")
+    else:
+        log(f"phase 1: JPEG decode NOT bound on this machine ({why}); the {sum(n.endswith('.jpg') for n in record)} "
+            f"JPEG fixtures are not checked here; the PNG fixtures equal imageio's arrays (sha256): {checked}")
+
+    rng = np.random.default_rng(0)
+    depth = (np.cumsum(np.cumsum(rng.integers(-2, 3, (512, 1024)), 0), 1) % 60000).astype(np.uint16)
+    data = png.encode_png(depth, (3, 4))
+    for key, plain in (("png_read_ms", False), ("png_read_plain_ms", True)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = png.decode_png_bytes(data, plain=plain)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(got, depth):
+            raise AssertionError("the PNG reader did not return the depth map it was given")
+        out[key] = statistics.median(times)
+    log(f"phase 1: 512x1024 u16 depth PNG of Average and Paeth rows, host ms (median of 3): C unfilter "
+        f"{out['png_read_ms']:.2f}, plain unfilter {out['png_read_plain_ms']:.2f}")
+    return out
 
 
 def stage_a_floors():
@@ -824,10 +916,9 @@ def lm_times(dev, graph) -> dict:
     return row
 
 
-def stage_d_phase(dev) -> dict:
-    """Stage D on the card against the CPU, and times (module docstring, phase 6)."""
-    import tempfile
-
+def stage_d_phase(dev, root: Path) -> dict:
+    """Stage D on the card against the CPU, and times (module docstring,
+    phase 6); its inputs and outputs stay under `root` for phase 7."""
     import numpy as np
     import torch
 
@@ -842,130 +933,260 @@ def stage_d_phase(dev) -> dict:
 
     cpu = torch.device("cpu")
     out = {}
-    repo = Path(__file__).resolve().parent
-    (repo / "build").mkdir(exist_ok=True)
     device_mod.reset_launch_counts()
-    with tempfile.TemporaryDirectory(dir=repo / "build") as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        floors = stage_d_inputs(root, dev)
-        log(f"phase 6: inputs for {len(floors)} floors (exporter on the card, seeded predictions) in "
-            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    floors = stage_d_inputs(root, dev)
+    log(f"phase 6: inputs for {len(floors)} floors (exporter on the card, seeded predictions) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
-        def run(bid, d, tag, method="pose2_slam", **kw):
-            kw.setdefault("hypotheses_save_root", str(root / "hyp"))
-            kw.setdefault("serialized_preds_json_dir", str(root / "preds" / bid))
-            kw.setdefault("use_axis_alignment", False)
-            kw.setdefault("predictions_data_root", None)
-            plot_dir = root / "out" / f"{tag}_{bid}_{d.type}"
-            t = time.perf_counter()
-            reports = run_incremental_reconstruction(
-                raw_dataset_dir=str(root / "zind"), method=method, confidence_threshold=STAGE_D_THRESHOLD,
-                allowed_wdo_types=STAGE_D_WDO_TYPES, plot_save_dir=str(plot_dir), rescue_clusters=True,
-                device=d, **kw)
-            if d.type == "cuda":
-                torch.cuda.synchronize()
-            return reports, (time.perf_counter() - t) * 1e3, Path(f"{plot_dir}_serialized")
+    def run(bid, d, tag, method="pose2_slam", **kw):
+        kw.setdefault("hypotheses_save_root", str(root / "hyp"))
+        kw.setdefault("serialized_preds_json_dir", str(root / "preds" / bid))
+        kw.setdefault("use_axis_alignment", False)
+        kw.setdefault("predictions_data_root", None)
+        plot_dir = root / "out" / f"{tag}_{bid}_{d.type}"
+        t = time.perf_counter()
+        reports = run_incremental_reconstruction(
+            raw_dataset_dir=str(root / "zind"), method=method, confidence_threshold=STAGE_D_THRESHOLD,
+            allowed_wdo_types=STAGE_D_WDO_TYPES, plot_save_dir=str(plot_dir), rescue_clusters=True,
+            device=d, **kw)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        return reports, (time.perf_counter() - t) * 1e3, Path(f"{plot_dir}_serialized")
 
-        run("0000", dev, "warmup")
-        rows, stage_times = [], {}
-        for side, d in (("card", dev), ("cpu", cpu)):
-            profiler.reset_stage_timers()
-            for bid in floors:
-                reports, ms, ser = run(bid, d, f"frozen_{side}")
-                rows.append({"floor": bid, "side": side, "ms": ms, "reports": reports, "dir": ser})
-            stage_times[side] = profiler.stage_summary()
-        # The LM adds nothing to the spanning tree (the reference defect): on
-        # the card, in a pass of its own, each floor's LM call returns its
-        # input poses bit for bit.
+    run("0000", dev, "warmup")
+    rows, stage_times = [], {}
+    for side, d in (("card", dev), ("cpu", cpu)):
+        profiler.reset_stage_timers()
         for bid in floors:
-            calls = lm_calls_of(lambda: run(bid, dev, "lm_check"))
-            if len(calls) != 1:
-                raise AssertionError(f"floor {bid}: {len(calls)} LM calls")
-            (init, (poses, _)), = calls
-            if [tuple(p) if p else None for p in poses] != [tuple(p) if p else None for p in init]:
-                raise AssertionError(f"floor {bid}: the LM on the card moved a spanning-tree pose")
-        out["floors"] = []
-        for bid in floors:
-            card, host = (next(r for r in rows if r["floor"] == bid and r["side"] == t) for t in ("card", "cpu"))
-            worst = compare_stage_d_runs(f"floor {bid}", card["reports"], host["reports"], card["dir"], host["dir"])
-            r = card["reports"][0]
-            row = {"floor": bid, "panos": len(pano_image_paths(floors[bid])),
-                   "localized_pct": r.percent_panos_localized, "top2_pct": r.percent_in_top2_ccs,
-                   "top3_pct": r.percent_in_top3_ccs, "iou": r.floorplan_iou, "rot_err_deg": r.avg_abs_rot_err,
-                   "trans_err_m": r.avg_abs_trans_err, "ms_card": card["ms"], "ms_cpu": host["ms"],
-                   "worst_error_diff": worst["errors"], "worst_pose_diff": worst["poses"]}
-            out["floors"].append(row)
-            log(f"phase 6: Stage D floor {bid}, {row['panos']} panos (frozen configuration): localized {r.percent_panos_localized:.2f}%, "
-                f"top-2/3 CCs {r.percent_in_top2_ccs:.2f}/{r.percent_in_top3_ccs:.2f}%, IoU {r.floorplan_iou:.6f}, "
-                f"rot {r.avg_abs_rot_err:.6f} deg, trans {r.avg_abs_trans_err:.6f} m; card = CPU (errors within "
-                f"{worst['errors']:.1e}, poses within {worst['poses']:.1e}); the LM returned the spanning-tree poses; "
-                f"whole call {card['ms']:.1f} ms card, {host['ms']:.1f} ms CPU")
-        out["stage_times"] = stage_times
-        log("phase 6: stage totals, card: " + ", ".join(f"{k} {v['total_s'] * 1e3:.1f} ms" for k, v in
-                                                         stage_times["card"].items())
-            + "; CPU: " + ", ".join(f"{k} {v['total_s'] * 1e3:.1f} ms" for k, v in stage_times["cpu"].items()))
+            reports, ms, ser = run(bid, d, f"frozen_{side}")
+            rows.append({"floor": bid, "side": side, "ms": ms, "reports": reports, "dir": ser})
+        stage_times[side] = profiler.stage_summary()
+    # The LM adds nothing to the spanning tree (the reference defect): on
+    # the card, in a pass of its own, each floor's LM call returns its
+    # input poses bit for bit.
+    for bid in floors:
+        calls = lm_calls_of(lambda: run(bid, dev, "lm_check"))
+        if len(calls) != 1:
+            raise AssertionError(f"floor {bid}: {len(calls)} LM calls")
+        (init, (poses, _)), = calls
+        if [tuple(p) if p else None for p in poses] != [tuple(p) if p else None for p in init]:
+            raise AssertionError(f"floor {bid}: the LM on the card moved a spanning-tree pose")
+    out["floors"] = []
+    for bid in floors:
+        card, host = (next(r for r in rows if r["floor"] == bid and r["side"] == t) for t in ("card", "cpu"))
+        worst = compare_stage_d_runs(f"floor {bid}", card["reports"], host["reports"], card["dir"], host["dir"])
+        r = card["reports"][0]
+        row = {"floor": bid, "panos": len(pano_image_paths(floors[bid])),
+               "localized_pct": r.percent_panos_localized, "top2_pct": r.percent_in_top2_ccs,
+               "top3_pct": r.percent_in_top3_ccs, "iou": r.floorplan_iou, "rot_err_deg": r.avg_abs_rot_err,
+               "trans_err_m": r.avg_abs_trans_err, "ms_card": card["ms"], "ms_cpu": host["ms"],
+               "worst_error_diff": worst["errors"], "worst_pose_diff": worst["poses"]}
+        out["floors"].append(row)
+        log(f"phase 6: Stage D floor {bid}, {row['panos']} panos (frozen configuration): localized {r.percent_panos_localized:.2f}%, "
+            f"top-2/3 CCs {r.percent_in_top2_ccs:.2f}/{r.percent_in_top3_ccs:.2f}%, IoU {r.floorplan_iou:.6f}, "
+            f"rot {r.avg_abs_rot_err:.6f} deg, trans {r.avg_abs_trans_err:.6f} m; card = CPU (errors within "
+            f"{worst['errors']:.1e}, poses within {worst['poses']:.1e}); the LM returned the spanning-tree poses; "
+            f"whole call {card['ms']:.1f} ms card, {host['ms']:.1f} ms CPU")
+    out["stage_times"] = stage_times
+    log("phase 6: stage totals, card: " + ", ".join(f"{k} {v['total_s'] * 1e3:.1f} ms" for k, v in
+                                                     stage_times["card"].items())
+        + "; CPU: " + ", ".join(f"{k} {v['total_s'] * 1e3:.1f} ms" for k, v in stage_times["cpu"].items()))
 
-        # Landmark SLAM with axis alignment on floor 0's inferred-mode inputs.
-        kw = dict(hypotheses_save_root=str(root / "hyp_inferred"),
-                  serialized_preds_json_dir=str(root / "preds_inferred"), use_axis_alignment=True,
-                  predictions_data_root=str(root / "mhnet"))
-        (card, ms_card, dir_card), (host, ms_cpu, dir_cpu) = (
-            run("0000", d, f"landmarks_{side}", **kw) for side, d in (("card", dev), ("cpu", cpu)))
-        worst = compare_stage_d_runs("landmark SLAM", card, host, dir_card, dir_cpu)
-        out["landmarks"] = {"ms_card": ms_card, "ms_cpu": ms_cpu, "iou": card[0].floorplan_iou, **worst}
-        log(f"phase 6: landmark SLAM + axis alignment, floor 0000: IoU {card[0].floorplan_iou:.6f}, localized "
-            f"{card[0].percent_panos_localized:.2f}%; card = CPU (errors within {worst['errors']:.1e}, poses within "
-            f"{worst['poses']:.1e}); whole call {ms_card:.1f} ms card, {ms_cpu:.1f} ms CPU")
+    # Landmark SLAM with axis alignment on floor 0's inferred-mode inputs.
+    kw = dict(hypotheses_save_root=str(root / "hyp_inferred"),
+              serialized_preds_json_dir=str(root / "preds_inferred"), use_axis_alignment=True,
+              predictions_data_root=str(root / "mhnet"))
+    (card, ms_card, dir_card), (host, ms_cpu, dir_cpu) = (
+        run("0000", d, f"landmarks_{side}", **kw) for side, d in (("card", dev), ("cpu", cpu)))
+    worst = compare_stage_d_runs("landmark SLAM", card, host, dir_card, dir_cpu)
+    out["landmarks"] = {"ms_card": ms_card, "ms_cpu": ms_cpu, "iou": card[0].floorplan_iou, **worst}
+    log(f"phase 6: landmark SLAM + axis alignment, floor 0000: IoU {card[0].floorplan_iou:.6f}, localized "
+        f"{card[0].percent_panos_localized:.2f}%; card = CPU (errors within {worst['errors']:.1e}, poses within "
+        f"{worst['poses']:.1e}); whole call {ms_card:.1f} ms card, {ms_cpu:.1f} ms CPU")
 
-        # The LM alone on a graph where it moves.
-        init, odo = moving_lm_graph()
-        (got, _), (want, _) = (pose2_slam.planar_slam(init, odo, {}, [], True, device=d) for d in (dev, cpu))
-        diff = float(np.max(np.abs(np.array(got) - np.array(want))))
-        moved = float(np.max(np.abs(np.array(got) - np.array(init))))
-        out["moving_lm"] = {"max_diff_card_cpu": diff, "max_move": moved}
-        log(f"phase 6: LM alone, {len(init)} poses, {len(odo)} between factors, nonzero prior: moved up to "
-            f"{moved:.4f}; card vs CPU max |diff| {diff:.3e}")
-        if diff > 1e-9 or moved < 0.05:
-            raise AssertionError(f"the moving LM: card vs CPU {diff}, moved {moved}")
+    # The LM alone on a graph where it moves.
+    init, odo = moving_lm_graph()
+    (got, _), (want, _) = (pose2_slam.planar_slam(init, odo, {}, [], True, device=d) for d in (dev, cpu))
+    diff = float(np.max(np.abs(np.array(got) - np.array(want))))
+    moved = float(np.max(np.abs(np.array(got) - np.array(init))))
+    out["moving_lm"] = {"max_diff_card_cpu": diff, "max_move": moved}
+    log(f"phase 6: LM alone, {len(init)} poses, {len(odo)} between factors, nonzero prior: moved up to "
+        f"{moved:.4f}; card vs CPU max |diff| {diff:.3e}")
+    if diff > 1e-9 or moved < 0.05:
+        raise AssertionError(f"the moving LM: card vs CPU {diff}, moved {moved}")
 
-        init, odo = identity_prior_graph()
-        for d in (dev, cpu):
-            got, _ = pose2_slam.planar_slam(init, odo, {}, [], True, device=d)
-            if [tuple(p) for p in got] != [tuple(p) for p in init]:
-                raise AssertionError(f"the LM on the {d.type} moved a pose of an identity-prior graph")
-        log(f"phase 6: LM on an identity-prior graph ({len(init)} poses, {len(odo)} between factors): returns its "
-            f"input bit for bit on the card and the CPU, as salve_tpu's")
+    init, odo = identity_prior_graph()
+    for d in (dev, cpu):
+        got, _ = pose2_slam.planar_slam(init, odo, {}, [], True, device=d)
+        if [tuple(p) for p in got] != [tuple(p) for p in init]:
+            raise AssertionError(f"the LM on the {d.type} moved a pose of an identity-prior graph")
+    log(f"phase 6: LM on an identity-prior graph ({len(init)} poses, {len(odo)} between factors): returns its "
+        f"input bit for bit on the card and the CPU, as salve_tpu's")
 
-        out["launches"] = device_mod.launch_counts()
-        log(f"phase 6: Stage D launches of B1-B3 (none on this path): {out['launches']}")
-        if any(out["launches"].values()):
-            raise AssertionError(f"Stage D launched a kernel of the scoring path: {out['launches']}")
+    out["launches"] = device_mod.launch_counts()
+    log(f"phase 6: Stage D launches of B1-B3 (none on this path): {out['launches']}")
+    if any(out["launches"].values()):
+        raise AssertionError(f"Stage D launched a kernel of the scoring path: {out['launches']}")
 
-        # Times on the card's clock.
-        gt0 = get_gt_pose_graph("0000", "floor_01", str(root / "zind"))
-        t = out["lm_floor"] = lm_times(dev, (init, odo, {}, [], True))
-        log(f"phase 6: LM on the identity-prior graph ({t['poses']} poses, {t['between_factors']} between factors, "
-            f"{t['iterations']} iterations): {t['enqueue_ms']:.3f} ms host enqueue; one iteration "
-            f"{t['one_iteration_device_ms']:.4f} ms device; one Jacobian {t['jacobian_operator_calls']} operator calls; "
-            f"torch.profiler: {t['kernels']} kernels, {t['kernel_ms']} ms of kernel time in the whole run")
-        half_m = (500 / 2) * fr.IOU_EVAL_METERS_PER_PX
-        rooms = [(p.room_vertices_global_2d * gt0.scale_meters_per_coordinate + half_m) / fr.IOU_EVAL_METERS_PER_PX
-                 for p in gt0.nodes.values()]
-        v = np.zeros((len(rooms), 64, 2), np.float32)
-        for k, img in enumerate(rooms):
-            v[k, : len(img)] = img
-        counts = np.array([len(r) for r in rooms])
-        vt = torch.as_tensor(v, device=dev)
-        if not torch.equal(polygon_mask(vt, counts, 501, 501).cpu(), polygon_mask(vt.cpu(), counts, 501, 501)):
-            raise AssertionError("polygon_mask on the card differs from the CPU's")
-        out["polygon_mask_ms"] = time_ms(lambda: polygon_mask(vt, counts, 501, 501))
-        log(f"phase 6: polygon_mask, floor 0000's {len(rooms)} rooms at 501^2 (max {counts.max()} vertices): "
-            f"{out['polygon_mask_ms']:.4f} ms device; card = CPU")
+    # Times on the card's clock.
+    gt0 = get_gt_pose_graph("0000", "floor_01", str(root / "zind"))
+    t = out["lm_floor"] = lm_times(dev, (init, odo, {}, [], True))
+    log(f"phase 6: LM on the identity-prior graph ({t['poses']} poses, {t['between_factors']} between factors, "
+        f"{t['iterations']} iterations): {t['enqueue_ms']:.3f} ms host enqueue; one iteration "
+        f"{t['one_iteration_device_ms']:.4f} ms device; one Jacobian {t['jacobian_operator_calls']} operator calls; "
+        f"torch.profiler: {t['kernels']} kernels, {t['kernel_ms']} ms of kernel time in the whole run")
+    half_m = (500 / 2) * fr.IOU_EVAL_METERS_PER_PX
+    rooms = [(p.room_vertices_global_2d * gt0.scale_meters_per_coordinate + half_m) / fr.IOU_EVAL_METERS_PER_PX
+             for p in gt0.nodes.values()]
+    v = np.zeros((len(rooms), 64, 2), np.float32)
+    for k, img in enumerate(rooms):
+        v[k, : len(img)] = img
+    counts = np.array([len(r) for r in rooms])
+    vt = torch.as_tensor(v, device=dev)
+    if not torch.equal(polygon_mask(vt, counts, 501, 501).cpu(), polygon_mask(vt.cpu(), counts, 501, 501)):
+        raise AssertionError("polygon_mask on the card differs from the CPU's")
+    out["polygon_mask_ms"] = time_ms(lambda: polygon_mask(vt, counts, 501, 501))
+    log(f"phase 6: polygon_mask, floor 0000's {len(rooms)} rooms at 501^2 (max {counts.max()} vertices): "
+        f"{out['polygon_mask_ms']:.4f} ms device; card = CPU")
     out["ms_card_median"] = statistics.median(r["ms_card"] for r in out["floors"])
     out["ms_cpu_median"] = statistics.median(r["ms_cpu"] for r in out["floors"])
     log(f"phase 6: Stage D per floor (median of {len(out['floors'])}): whole call {out['ms_card_median']:.1f} ms "
         f"on the card, {out['ms_cpu_median']:.1f} ms on the CPU")
+    return out
+
+
+def raster_calls_of(fn) -> list:
+    """Run fn() and return (edges, nx, ny) of each `points_in_polygon_grid`
+    call in it, as the interpreter's profile hook sees them start; nothing
+    of the port is replaced."""
+    from salve_tpu_torch.ops import raster
+
+    code, calls = raster.points_in_polygon_grid.__code__, []
+
+    def hook(frame, event, arg):
+        if event == "call" and frame.f_code is code:
+            loc = frame.f_locals
+            calls.append((int(loc["polygon"].shape[0]), len(loc["xs"]), len(loc["ys"])))
+
+    sys.setprofile(hook)
+    try:
+        fn()
+    finally:
+        sys.setprofile(None)
+    return calls
+
+
+def fused_key(floor_shape_final) -> list:
+    """Every fused boundary, confidence and pose of `refine_predicted_shape`,
+    as exact floats (the room groups are its outer lists)."""
+    return [[([(p.x, p.y) for p in xys], list(conf), (pose.position.x, pose.position.y, pose.rotation))
+             for xys, conf, pose in group] for group in floor_shape_final]
+
+
+def stitching_phase(dev, root: Path) -> dict:
+    """Phase 7: stitching on phase 6's floors (module docstring)."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.algorithms.room_merging import group_panos_by_room
+    from salve_tpu_torch.cli.stitch_floor_plan import stitch_building_layouts
+    from salve_tpu_torch.dataset import seeded_stitching
+    from salve_tpu_torch.dataset.salve_sfm_result_loader import EstimatedBoundaryType, load_estimated_pose_graph
+    from salve_tpu_torch.stitching.cluster_stitching import stitch_clusters
+
+    cpu = torch.device("cpu")
+    floors = [(seed, f"{seed:04d}", building) for seed, building, _, _ in stage_a_floors()]
+    work = root / "stitching"
+    cases = []  # (floor, layouts root, serialized poses, cluster files)
+    for seed, bid, building in floors:
+        ser = root / "out" / f"frozen_card_{bid}_cuda_serialized" / f"{bid}__floor_01.json"
+        seeded_stitching.write_layout_predictions(work / "layouts", bid, building, seed)
+        clusters = seeded_stitching.write_cluster_inputs(work / f"clusters_{bid}", bid, building, str(ser), seed)
+        cases.append((bid, str(work / "layouts"), ser, clusters))
+    # Floor 0 again on phase 6's seeded MHNet files (sinusoid boundaries,
+    # nonzero uncertainties).
+    cases.append(("0000", str(root / "mhnet"), cases[0][2], None))
+
+    def layouts(bid, pred_root, ser, d, tag):
+        return stitch_building_layouts(bid, pred_root, str(root / "zind"), str(ser), str(work / f"out_{tag}_{d.type}"),
+                                       device=d)
+
+    def scores(bid, files, d):
+        out_dir = work / f"scores_{bid}_{d.type}"
+        got = stitch_clusters(files["clusters"], files["pred_dir"], files["floor_map"], str(out_dir), device=d)
+        return got, json.loads((out_dir / "score.json").read_text())
+
+    layouts(*cases[0][:3], dev, "warmup")
+    torch.cuda.synchronize()
+    device_mod.reset_launch_counts()
+    out = {"floors": []}
+    for k, (bid, pred_root, ser, files) in enumerate(cases):
+        tag = "mhnet" if files is None else "layouts"
+        row = {"floor": bid, "layouts": tag}
+        results = {}
+        for side, d in (("card", dev), ("cpu", cpu)):
+            graph = load_estimated_pose_graph(ser, EstimatedBoundaryType.HNET_CORNERS, str(root / "zind"), pred_root)
+            t0 = time.perf_counter()
+            shapes, rings = layouts(bid, pred_root, ser, d, f"{tag}{k}")
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            row[f"layouts_ms_{side}"] = (time.perf_counter() - t0) * 1e3
+            results[side] = {"groups": group_panos_by_room(graph, device=d), "fused": fused_key(shapes),
+                             "rings": rings}
+            if files is not None:
+                t0 = time.perf_counter()
+                results[side]["scores"] = scores(bid, files, d)
+                if d.type == "cuda":
+                    torch.cuda.synchronize()
+                row[f"clusters_ms_{side}"] = (time.perf_counter() - t0) * 1e3
+        card, host = results["card"], results["cpu"]
+        if card["groups"] != host["groups"]:
+            raise AssertionError(f"stitching floor {bid} ({tag}): room groups {card['groups']} on the card, "
+                                 f"{host['groups']} on the CPU")
+        if card["fused"] != host["fused"] or not all(
+                np.array_equal(a, b) for g, h in zip(card["rings"], host["rings"]) for a, b in zip(g, h)):
+            raise AssertionError(f"stitching floor {bid} ({tag}): a fused ring differs between the card and the CPU")
+        if files is not None and card["scores"] != host["scores"]:
+            raise AssertionError(f"stitching floor {bid}: score.json {card['scores'][1]} on the card, "
+                                 f"{host['scores'][1]} on the CPU")
+        row["groups"] = [len(g) for g in card["groups"]]
+        row["fused_rings"] = sum(len(g) for g in card["rings"])
+        if files is not None:
+            row["iou"] = [float(s["iou"]) for s in card["scores"][0]]
+        out["floors"].append(row)
+        log(f"phase 7: stitching floor {bid} ({tag}): groups {row['groups']}, {row['fused_rings']} fused rings"
+            + (f", cluster IoU {row['iou']}" if files is not None else "")
+            + f"; card = CPU (groups in order, rings bit for bit{', score.json' if files is not None else ''}); "
+            f"stitch_building_layouts {row['layouts_ms_card']:.1f} ms card, {row['layouts_ms_cpu']:.1f} ms CPU"
+            + (f"; stitch_clusters {row['clusters_ms_card']:.1f} ms card, {row['clusters_ms_cpu']:.1f} ms CPU"
+               if files is not None else ""))
+    out["launches"] = device_mod.launch_counts()
+    log(f"phase 7: stitching launches of B1-B3 (none on this path): {out['launches']}")
+    if any(out["launches"].values()):
+        raise AssertionError(f"stitching launched a kernel of the scoring path: {out['launches']}")
+
+    # The raster on the card: what it saw and its summed kernel time.
+    bid, pred_root, ser, files = cases[0]
+    for name, fn in (("layouts", lambda: layouts(bid, pred_root, ser, dev, "profile")),
+                     ("clusters", lambda: scores(bid, files, dev))):
+        calls = raster_calls_of(fn)
+        kernels_n, kernel_ms = profiled_kernels(fn)
+        row = {"raster_calls": len(calls), "cells": sum(nx * ny for _, nx, ny in calls),
+               "cell_edge_tests": sum(m * nx * ny for m, nx, ny in calls),
+               "largest_grid": max((ny, nx) for _, nx, ny in calls), "edges": sorted({m for m, _, _ in calls}),
+               "kernels": kernels_n, "kernel_ms": kernel_ms}
+        out[f"raster_{name}"] = row
+        log(f"phase 7: floor {bid}, {name} flow on the card: {row['raster_calls']} raster calls, {row['cells']} cells, "
+            f"{row['cell_edge_tests']} cell x edge tests, largest grid {row['largest_grid'][0]}x{row['largest_grid'][1]}, "
+            f"edge counts {row['edges']}; torch.profiler: {kernels_n} kernels, {kernel_ms} ms of kernel time in the call")
+    layout_rows = [r for r in out["floors"] if r["layouts"] == "layouts"]
+    for key in ("layouts_ms_card", "layouts_ms_cpu", "clusters_ms_card", "clusters_ms_cpu"):
+        out[f"{key}_median"] = statistics.median(r[key] for r in layout_rows)
+    log(f"phase 7: stitching per floor (median of {len(layout_rows)}): stitch_building_layouts "
+        f"{out['layouts_ms_card_median']:.1f} ms card, {out['layouts_ms_cpu_median']:.1f} ms CPU; stitch_clusters "
+        f"{out['clusters_ms_card_median']:.1f} ms card, {out['clusters_ms_cpu_median']:.1f} ms CPU")
     return out
 
 
@@ -1288,6 +1509,10 @@ def main() -> int:
     log(f"throughput: Stage D frozen configuration {sd['ms_card_median']:.1f} ms a floor on the card, "
         f"{sd['ms_cpu_median']:.1f} ms on the CPU (run_incremental_reconstruction, median of "
         f"{len(sd['floors'])} floors)")
+    st = report["stitching"]
+    log(f"throughput: stitching {st['layouts_ms_card_median']:.1f} ms a floor on the card, "
+        f"{st['layouts_ms_cpu_median']:.1f} ms on the CPU (stitch_building_layouts); stitch_clusters "
+        f"{st['clusters_ms_card_median']:.1f} / {st['clusters_ms_cpu_median']:.1f} ms (median of 8 floors)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
             "shape",

@@ -18,7 +18,10 @@ under which the port's arithmetic reproduces every hypothesis's output bits:
 It then checks the whole scorer on fresh noisy and near-exact inputs and
 writes `salve_tpu_torch/ops/xla_sum_orders.json`. It runs JAX on the CPU:
 
-    python derive_xla_sum_orders.py [--max_n 64] [--check_only]
+    python derive_xla_sum_orders.py [--min_n 3] [--max_n 64] [--check_only]
+
+`--check_only` derives nothing; a check that passes and continues the
+checked range (`--min_n` at most `checked_to` + 1) raises `checked_to`.
 
 The plans hold for the installed jaxlib on this CPU's instruction set; the
 file records both.
@@ -235,6 +238,10 @@ def main(argv=None) -> int:
             failed.append(n)
             if measured and not args.check_only:
                 table["ransac_errors"].pop(str(n))
+    if args.check_only and not failed and args.min_n <= table.get("checked_to", 0) + 1:
+        # A clean check that continues the checked range extends it.
+        table["checked_to"] = max(table["checked_to"], args.max_n)
+        OUT.write_text(json.dumps(table, indent=1, sort_keys=True) + "\n")
     if not args.check_only:
         table["jaxlib"] = jax.__version__
         table["cpu"] = f"{platform.machine()} {torch.backends.cpu.get_cpu_capability()}"

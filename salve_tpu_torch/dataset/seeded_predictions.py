@@ -111,8 +111,14 @@ def pano_image_paths(building_json: dict) -> Dict[int, str]:
 def write_seeded_mhnet_predictions(root: Path, building_id: str, building_json: dict, seed: int) -> None:
     """Seeded MHNet prediction JSONs under `root/horizon_net/<building>/`, one
     per pano: a smooth floor boundary below the horizon and 0-3 spans of each
-    W/D/O type, with one opening split by the pano seam now and then."""
+    W/D/O type, with one opening split by the pano seam now and then.
+
+    The boundary's per-column uncertainty (px) is positive and varies along
+    the row and between panos, so stitching's confidence-weighted fusion has
+    walls to choose between. It comes from a generator of its own, so the
+    other fields are those of the same seed without it."""
     rng = np.random.default_rng(seed)
+    rng_unc = np.random.default_rng([seed, 1])
     out = Path(root) / "horizon_net" / building_id
     out.mkdir(parents=True)
     for complete in building_json["merger"]["floor_01"].values():
@@ -137,12 +143,20 @@ def write_seeded_mhnet_predictions(root: Path, building_id: str, building_json: 
                         "corners_in_uv": rng.uniform(0, 1, (8, 2)).tolist(),
                         "raw_predictions": {
                             "floor_boundary": boundary.tolist(),
-                            "floor_boundary_uncertainty": np.zeros(1024).tolist(),
+                            "floor_boundary_uncertainty": boundary_uncertainty(rng_unc).tolist(),
                         },
                     },
                     "wall_features": feats,
                 }
                 (out / f"{stem}.json").write_text(json.dumps({"predictions": pred}))
+
+
+def boundary_uncertainty(rng: np.random.Generator, width: int = 1024) -> np.ndarray:
+    """A (width,) positive per-column floor-boundary uncertainty in px: a
+    smooth wave around a per-pano level, with noise."""
+    u = np.linspace(0, 2 * np.pi, width)
+    level, amp = rng.uniform(3.0, 8.0), rng.uniform(0.5, 2.5)
+    return level + amp * np.sin(u * rng.integers(1, 5) + rng.uniform(0, 6)) + np.abs(rng.normal(0, 0.5, width))
 
 
 def write_seeded_vanishing_angles(root: Path, building_id: str, building_json: dict, seed: int) -> None:

@@ -11,12 +11,63 @@ Two rewrites change no value: the intersection, which depends only on the
 row, is computed once a row instead of once a pixel, and edges past the
 longest polygon of a batch are not visited (JAX masks padded edges out).
 
+`points_in_polygon_grid` is stitching's raster containment: the float64
+numpy test of salve_tpu/geometry/polygons.py:29 on every cell of a grid,
+which room grouping and the stitch IoU run (salve_tpu/algorithms/
+room_merging.py:23, salve_tpu/stitching/shape.py:249). It is plain numpy in
+the JAX package, so plain torch is its port, here float64 on the polygon's
+device.
+
 `polyline_coverage` and `paint_rgb` come with the file-contract renderer.
 """
 
 from __future__ import annotations
 
 import torch
+
+# Elements (rows x columns x edges) of one chunk of `points_in_polygon_grid`:
+# a 4000^2 grid against a 1024-vertex ring is 16e9 and is never allocated.
+GRID_CHUNK_ELEMENTS = 1 << 25
+
+
+def points_in_polygon_grid(polygon: torch.Tensor, xs, ys) -> torch.Tensor:
+    """(ny, nx) bool even-odd mask of the grid `meshgrid(xs, ys)`.
+
+    Exactly `points_in_polygon(polygon, grid).reshape(ny, nx)` of
+    salve_tpu/geometry/polygons.py:29, computed on `polygon`'s device: the
+    ring closes by a roll, a horizontal edge's denominator is 1.0, the
+    crossing x is `x1 + ((qy - y1) * (x2 - x1)) / denom` with each step its
+    own float64 op (nothing fuses into an FMA), and the crossing count is an
+    integer taken mod 2. The crossing x depends on the row alone, so it is
+    computed once a row instead of once a cell: the same values.
+
+    Args:
+        polygon: (M, 2) float64 ring (closure implicit).
+        xs, ys: (nx,) and (ny,) float64 cell centres, numpy or torch, built
+            on the host with the reference's expressions; copied to the
+            polygon's device.
+    """
+    if polygon.dtype != torch.float64:
+        raise ValueError(f"the polygon must be float64, got {polygon.dtype}")
+    dev = polygon.device
+    xs = torch.as_tensor(xs, dtype=torch.float64, device=dev)
+    ys = torch.as_tensor(ys, dtype=torch.float64, device=dev)
+    x1, y1 = polygon[:, 0], polygon[:, 1]
+    x2, y2 = torch.roll(x1, -1), torch.roll(y1, -1)
+    denom = y2 - y1
+    denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+    dx = x2 - x1
+    nx, ny, m = xs.shape[0], ys.shape[0], polygon.shape[0]
+    rows = max(1, GRID_CHUNK_ELEMENTS // max(nx * m, 1))
+    out = torch.empty((ny, nx), dtype=torch.bool, device=dev)
+    qx = xs[None, :, None]  # (1, nx, 1)
+    for r0 in range(0, ny, rows):
+        qy = ys[r0:r0 + rows, None]  # (rows, 1)
+        straddles = (y1 > qy) != (y2 > qy)  # (rows, M)
+        x_cross = x1 + ((qy - y1) * dx) / denom  # (rows, M)
+        hit = straddles[:, None, :] & (qx < x_cross[:, None, :])  # (rows, nx, M)
+        out[r0:r0 + rows] = hit.sum(dim=-1, dtype=torch.int32) % 2 == 1
+    return out
 
 
 def polygon_mask(

@@ -2,7 +2,8 @@
 
 Port of the fused-scoring half of salve_tpu/rendering/bev_pair.py:
 `render_identity_batched`, `render_transformed_batched`, the render config,
-and the host-side IO helpers.
+and the host-side IO helpers, which read images with the port's own JPEG and
+PNG readers (native/), not imageio.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from salve_tpu_torch.native import jpeg, png
 from salve_tpu_torch.ops import backproject as bp
 from salve_tpu_torch.ops import bev as bev_ops
 
@@ -93,11 +95,21 @@ def bev_fname_from_img_fpath(
     return f"pair_{pair_idx}___{pair_uuid}_{surface_type}_{modality}_{fname_stem}.jpg"
 
 
+def read_image(img_fpath: str) -> np.ndarray:
+    """A JPEG or PNG file's pixels as `imageio.v2.imread` returns them, read
+    by the port's own readers (native/): by the file's signature, not its
+    name."""
+    data = Path(img_fpath).read_bytes()
+    if data[:3] == b"\xff\xd8\xff":
+        return jpeg.decode_jpeg_bytes(data)
+    if data[:8] == png.SIGNATURE:
+        return png.decode_png_bytes(data)
+    raise ValueError(f"{img_fpath}: neither a JPEG nor a PNG file")
+
+
 def load_pano_rgb(img_fpath: str) -> np.ndarray:
     """Load a pano JPG, bilinearly resized to (512, 1024), in [0, 1]."""
-    import imageio.v2 as imageio
-
-    rgb = imageio.imread(img_fpath)
+    rgb = read_image(img_fpath)
     if rgb.ndim == 2:
         rgb = np.stack([rgb] * 3, axis=-1)
     rgb = bp.resize_pano_bilinear(torch.from_numpy(np.asarray(rgb)), PANO_H, PANO_W).numpy()
@@ -106,6 +118,4 @@ def load_pano_rgb(img_fpath: str) -> np.ndarray:
 
 def load_depth_mm(depth_fpath: str) -> np.ndarray:
     """Load a cached u16 depth PNG (millimeters), shape (512, 1024)."""
-    import imageio.v2 as imageio
-
-    return np.asarray(imageio.imread(depth_fpath))
+    return png.read_png(depth_fpath)

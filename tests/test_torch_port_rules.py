@@ -1,7 +1,8 @@
 """Rules of the PyTorch port: no JAX, the card by default, no hidden fallback.
 
 Every `salve_tpu_torch` module and `chip_smoke.py` import neither jax, flax,
-optax, networkx nor click nor any `salve_tpu` module; the CLIs start with
+optax, networkx, click, imageio, PIL nor matplotlib nor any `salve_tpu`
+module; the CLIs start with
 only the standard library, torch, numpy and scipy; entry points given no
 device run on the CUDA card and raise without one; each CUDA kernel wrapper
 launches its kernel or raises, and takes the plain version only for CPU
@@ -19,7 +20,7 @@ from salve_tpu_torch import device as device_mod
 from salve_tpu_torch.ops import fill, kernels, splat, warp
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "salve_tpu", "networkx", "click")
+FORBIDDEN = ("jax", "flax", "optax", "salve_tpu", "networkx", "click", "imageio", "PIL", "matplotlib")
 # Packages the card's machine lacks: the CLIs must start without them.
 ABSENT_ON_THE_CARD = ("jax", "flax", "optax", "salve_tpu", "networkx", "click", "matplotlib", "imageio", "PIL",
                       "cv2", "sklearn")
@@ -66,7 +67,8 @@ def test_clis_start_without_packages_the_card_lacks():
         f"sys.modules.update(dict.fromkeys({ABSENT_ON_THE_CARD!r}))\n"
         "importlib.import_module(sys.argv[1]).main(['--help'])\n"
     )
-    for cli in ("run_sfm", "export_alignment_hypotheses", "test_fused"):
+    for cli in ("run_sfm", "export_alignment_hypotheses", "test_fused", "stitch_floor_plan",
+                "stitch_floor_plan_clusters"):
         out = subprocess.run([sys.executable, "-c", script, f"salve_tpu_torch.cli.{cli}"], cwd=REPO,
                              capture_output=True, text=True, timeout=300)
         assert out.returncode == 0, out.stderr
@@ -174,6 +176,50 @@ def test_stage_d_entry_points_raise_without_a_card(no_cuda, tmp_path):
                                        ["door"], None, plot_save_dir=str(tmp_path / "out"))
     assert planar_slam([None], [], {}, [], True, device="cpu") == ([None], {})
     assert not rasterize_room(empty, 1.0, 10, 0.1, device="cpu").any()
+
+
+def test_stitching_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    """Room grouping, the stitch IoU and raster, and both stitching flows take
+    `device=None` as the card and raise without one, even on empty input."""
+    from salve_tpu_torch.algorithms.room_merging import group_panos_by_room
+    from salve_tpu_torch.cli.stitch_floor_plan import stitch_building_layouts
+    from salve_tpu_torch.common.posegraph2d import PoseGraph2d
+    from salve_tpu_torch.ops.raster import points_in_polygon_grid
+    from salve_tpu_torch.stitching import shape
+    from salve_tpu_torch.stitching.cluster_stitching import stitch_clusters
+
+    empty = PoseGraph2d("0000", "floor_01", {}, 1.0)
+    ring = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        group_panos_by_room(empty)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shape.group_panos_by_room({}, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shape.iou_between_polygon_sets([], [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shape.rasterize_polygons_union([ring])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stitch_clusters(str(tmp_path), str(tmp_path), str(tmp_path), str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stitch_building_layouts("0000", str(tmp_path), str(tmp_path), str(tmp_path), str(tmp_path / "out"))
+    assert group_panos_by_room(empty, device="cpu") == []
+    assert shape.iou_between_polygon_sets([], [], device="cpu")["iou"] == 0.0
+    # The raster runs where its polygon lies: on the CPU here.
+    mask = points_in_polygon_grid(torch.as_tensor(ring), np.array([0.2, 0.9]), np.array([0.2, 0.9]))
+    assert mask.tolist() == [[True, False], [False, False]]
+
+
+def test_native_readers_build_apart_from_the_kernels():
+    """Each C shim is its own library, outside libsalve_kernels.so (a
+    machine without libjpeg loses the JPEG decode and nothing else)."""
+    from salve_tpu_torch.native import build
+
+    jpeg_lib = build.library_path("jpeg_decode.c", ("-ljpeg",))
+    png_lib = build.library_path("png_unfilter.c", ())
+    assert jpeg_lib.parent != png_lib.parent and "libsalve_kernels" not in (jpeg_lib.name + png_lib.name)
+    assert not list(kernels.CSRC.glob("*.c"))
+    for src in ("jpeg_decode.c", "png_unfilter.c"):
+        assert "#include <torch" not in (build.HERE / src).read_text()
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
