@@ -1,5 +1,5 @@
-"""Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A, Stage D
-and stitching on one CUDA card.
+"""Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A, Stage D,
+stitching and the corpus renderer on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,13 +9,16 @@ outside a checkout of the repository.
 
 Phases:
   1. build the three CUDA kernels from `salve_tpu_torch/csrc` (timed), and
-     print how many blocks B1's cooperative launch takes; the image readers
-     (salve_tpu_torch/native): print what the machine offers for a JPEG
-     decode (find_library, ldconfig, libjpeg's headers and version); where
-     the libjpeg shim builds, the committed JPEG fixtures must decode to
-     the sha256 of imageio's arrays, and where it does not the run says so;
-     the PNG fixtures must always; then the host ms of a 512x1024 u16 depth
-     PNG of Average and Paeth rows, C unfilter against the plain one;
+     print how many blocks B1's cooperative launch takes; the image IO
+     (salve_tpu_torch/native, a JPEG codec written by hand and the PNG
+     reader) on this machine's host: every committed JPEG and PNG fixture
+     must decode to the sha256 of imageio's array, the encoder fixtures
+     (seeded 501^2 render-like, 37x53 noise and 1024x2048 pano images, q95)
+     must encode to the sha256 of cv2's bytes and the pano's bytes decode to
+     Pillow's array; then the host ms of the pano's decode, of
+     `load_pano_rgb` on it, of a 501^2 render's encode, and of a 512x1024
+     u16 depth PNG of Average and Paeth rows, C unfilter against the plain
+     one;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (4 synthetic 512x1024 panos; 501^2 renders, 1001^2
      warp banks, 32 hypotheses): B1 splat (ceiling and floor at 4x501^2 and
@@ -55,7 +58,7 @@ Phases:
      Sim(3), noise, outliers) on the card against its CPU run and the known
      transform; then the batched product's device ms per floor, and the
      whole call's ms per floor and hypotheses/s on the card and on the CPU;
-  6. Stage D and the floor report on the same 8 floors: the GT-mode exporter
+  6. Stage D and the floor report on the first 4 of those floors: the GT-mode exporter
      and seeded predictions (oracle labels, 15% of the positives and every
      positive of one pano a floor below the 0.93 threshold, 3 confident false
      positives) feed `run_incremental_reconstruction` in the frozen
@@ -75,7 +78,7 @@ Phases:
      device ms, one Jacobian's operator calls and the whole run's summed
      kernel ms (torch.profiler); `polygon_mask`'s device ms for one floor's
      rooms; and the whole call's ms per floor on the card and the CPU.
-  7. stitching on phase 6's 8 floors and their serialized card poses, with
+  7. stitching on phase 6's 4 floors and their serialized card poses, with
      layouts seeded from the true rooms (`dataset/seeded_stitching.py`,
      nonzero uncertainties) and, for floor 0, phase 6's seeded MHNet files:
      `stitch_building_layouts` and `stitch_clusters` (two clusters a floor,
@@ -86,6 +89,21 @@ Phases:
      profile hook) and the call's summed kernel ms (torch.profiler), and the
      whole calls' ms per floor on the card and the CPU.
 
+  8. the file-contract corpus renderer (`rendering/dataset_renderer.py`)
+     on phase 6's floors 0 and 1, written out as a ZInD raw directory
+     (1024x2048 JPEG panos from the port's encoder, 512x1024 u16 depth
+     PNGs): the warp arm (501^2 identity renders and 1001^2 banks on the
+     card, host NN warp, batch 64) over every GT-mode pair of both floors,
+     on the card and on the CPU, must give equal file trees (sha256 of every
+     file), launching B1 and B2 4 times a floor and B3 never; a second call
+     renders 0 pairs; the direct arm (batch 8) on 64 pairs of floor 0, card
+     against CPU, one B1 and one B2 a batch and surface, its img2 files equal
+     to the warp arm's; the layout modality on 8 pairs of floor 0 with
+     phase 6's seeded MHNet files, card against CPU; then pairs/s and the
+     whole call's ms a floor on both, the `render/*` stage timers, and one
+     batch of 64 through the host warp against the torch gather warp on the
+     card, fetch included.
+
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -95,7 +113,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -126,6 +143,15 @@ DSMEM_BLOCK_CELLS = 15_688
 STAGE_A_SEEDS = tuple(range(8))
 STAGE_A_GRID = 4
 RANSAC_ITERS = 1000
+# Phase 8: the corpus renderer on two of phase 6's floors (every pair in the
+# warp arm), a prefix of floor 0's pairs in the direct arm and the layout
+# modality.
+CORPUS_FLOORS = ("0000", "0001")
+CORPUS_DIRECT_PAIRS = 64
+CORPUS_LAYOUT_PAIRS = 8
+# Floors of phases 6 and 7: the first 4 of Stage A's 8 (cut from 8 when
+# phase 8 joined the run, to keep the whole run near its old length).
+STAGE_D_FLOORS = 4
 # Stage D's frozen configuration (salve_tpu/cli/end_to_end_eval.py:433-477).
 STAGE_D_THRESHOLD = 0.93
 STAGE_D_WDO_TYPES = ["door", "window", "opening"]
@@ -447,72 +473,75 @@ def run(dev) -> dict:
     with tempfile.TemporaryDirectory(dir=repo / "build") as tmp:
         report["stage_d"] = stage_d_phase(dev, Path(tmp))
         report["stitching"] = stitching_phase(dev, Path(tmp))
+        report["corpus"] = corpus_phase(dev, Path(tmp))
+    for name, row in report["kernels"].items():
+        row["launches_corpus"] = {arm: report["corpus"][f"{arm}_card"]["launches"][name] for arm in ("warp", "direct")}
     return report
 
 
 def image_io_phase() -> dict:
-    """Phase 1's image readers (salve_tpu_torch/native): what the machine
-    offers for a JPEG decode; the committed fixtures' arrays against the
-    sha256 of imageio's (recorded on a machine with imageio), for the JPEG
-    decode where it is bound and always for the PNG reader; and the host
-    ms of a 512x1024 u16 depth-PNG read of Average and Paeth rows, through
-    the C unfilter and the plain one."""
-    import ctypes.util
-
+    """Phase 1's image IO (salve_tpu_torch/native), on this machine's host:
+    every committed JPEG and PNG fixture against the sha256 of imageio's
+    array (recorded where imageio is), the encoder fixtures against the
+    sha256 of cv2's bytes and the pano's decode against Pillow's array
+    (native/fixtures/codec_sha256.json); any mismatch fails the run. Then
+    the host ms (median of 3) of the codec at the corpus's sizes and of a
+    512x1024 u16 depth-PNG read of Average and Paeth rows, through the C
+    unfilter and the plain one."""
     import numpy as np
 
+    from salve_tpu_torch.native import codec_fixtures as cf
     from salve_tpu_torch.native import jpeg, png
-
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
-    headers = [h for h in ("/usr/include/jpeglib.h", "/usr/include/turbojpeg.h", f"{cuda_home}/include/jpeglib.h",
-                           f"{cuda_home}/include/turbojpeg.h") if os.path.exists(h)]
-    versions = []
-    for conf in ("/usr/include/jconfig.h", "/usr/include/x86_64-linux-gnu/jconfig.h"):
-        if os.path.exists(conf):
-            versions += [ln.strip() for ln in open(conf)
-                         if ln.startswith("#define") and ("JPEG_LIB_VERSION" in ln or "LIBJPEG_TURBO_VERSION" in ln)]
-    out = {"find_library_jpeg": ctypes.util.find_library("jpeg"),
-           "find_library_turbojpeg": ctypes.util.find_library("turbojpeg"),
-           "ldconfig_jpeg": [ln.strip() for ln in ldconfig.splitlines() if "jpeg" in ln.lower()],
-           "headers": headers, "versions": versions}
-    log(f"phase 1: libjpeg probe: {json.dumps(out)}")
+    from salve_tpu_torch.rendering import bev_pair
 
     fixtures = Path(jpeg.__file__).parent / "fixtures"
     record = json.loads((fixtures / "imageio_sha256.json").read_text())
-    try:
-        jpeg.decode_jpeg_bytes((fixtures / "gray_31x47.jpg").read_bytes())
-        out["jpeg_bound"], why = True, ""
-    except RuntimeError as err:
-        out["jpeg_bound"], why = False, str(err).splitlines()[0]
+    out = {}
     checked = []
     for name, want in sorted(record.items()):
-        if name.endswith(".jpg") and not out["jpeg_bound"]:
-            continue
         arr = (jpeg.decode_jpeg if name.endswith(".jpg") else png.read_png)(fixtures / name)
         got = {"shape": list(arr.shape), "dtype": str(arr.dtype), "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
         if got != want:
             raise AssertionError(f"fixture {name}: {got} is not imageio's {want}")
         checked.append(name)
     out["fixtures_checked"] = checked
-    if out["jpeg_bound"]:
-        log(f"phase 1: JPEG decode bound; {len(checked)} fixtures equal imageio's arrays (sha256): {checked}")
-    else:
-        log(f"phase 1: JPEG decode NOT bound on this machine ({why}); the {sum(n.endswith('.jpg') for n in record)} "
-            f"JPEG fixtures are not checked here; the PNG fixtures equal imageio's arrays (sha256): {checked}")
+    log(f"phase 1: {len(checked)} committed fixtures ({sum(n.endswith('.jpg') for n in checked)} JPEG) decode to "
+        f"imageio's arrays (sha256): {checked}")
+
+    codec = cf.load_record()
+    images = cf.encoder_images()
+    encoded = {}
+    for name, (img, q) in sorted(images.items()):
+        encoded[name] = jpeg.encode_jpeg_bytes(img, q)
+        if cf.sha256(encoded[name]) != codec["encode"][name]["sha256"]:
+            raise AssertionError(f"encoder fixture {name}: the bytes are not cv2's")
+    for name, want in codec["decode"].items():
+        if cf.sha256(jpeg.decode_jpeg_bytes(encoded[name])) != want["sha256"]:
+            raise AssertionError(f"decoder fixture {name}: the array is not Pillow's")
+    out["codec_checked"] = sorted(codec["encode"]) + [f"decode:{n}" for n in codec["decode"]]
+    log(f"phase 1: encoder bytes equal cv2's (sha256) for {sorted(codec['encode'])}; the decode of "
+        f"{sorted(codec['decode'])} equals Pillow's array (record: {codec['versions']})")
+
+    pano_bytes = encoded[cf.PANO_NAME]
+    render = images["render_like_501x501"][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        pano_path = Path(tmp) / "pano.jpg"
+        pano_path.write_bytes(pano_bytes)
+        for key, fn in (("pano_decode_ms", lambda: jpeg.decode_jpeg_bytes(pano_bytes)),
+                        ("pano_load_pano_rgb_ms", lambda: bev_pair.load_pano_rgb(str(pano_path))),
+                        ("render_encode_ms", lambda: jpeg.encode_jpeg_bytes(render, 95))):
+            out[key] = host_clock_ms(fn)
+    log(f"phase 1: codec host ms (median of 3): decode of the 1024x2048 q95 pano {out['pano_decode_ms']:.2f}, "
+        f"load_pano_rgb on it (decode and resize to 512x1024) {out['pano_load_pano_rgb_ms']:.2f}, "
+        f"encode of a 501^2 render at q95 {out['render_encode_ms']:.2f}")
 
     rng = np.random.default_rng(0)
     depth = (np.cumsum(np.cumsum(rng.integers(-2, 3, (512, 1024)), 0), 1) % 60000).astype(np.uint16)
     data = png.encode_png(depth, (3, 4))
     for key, plain in (("png_read_ms", False), ("png_read_plain_ms", True)):
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            got = png.decode_png_bytes(data, plain=plain)
-            times.append((time.perf_counter() - t0) * 1e3)
-        if not np.array_equal(got, depth):
+        out[key] = host_clock_ms(lambda: png.decode_png_bytes(data, plain=plain))
+        if not np.array_equal(png.decode_png_bytes(data, plain=plain), depth):
             raise AssertionError("the PNG reader did not return the depth map it was given")
-        out[key] = statistics.median(times)
     log(f"phase 1: 512x1024 u16 depth PNG of Average and Paeth rows, host ms (median of 3): C unfilter "
         f"{out['png_read_ms']:.2f}, plain unfilter {out['png_read_plain_ms']:.2f}")
     return out
@@ -772,7 +801,7 @@ def stage_a_times(dev, floors) -> dict:
 
 
 def stage_d_inputs(root: Path, dev) -> dict:
-    """Phase 6's inputs under `root`: the 8 floors' buildings, GT-mode
+    """Phase 6's inputs under `root`: the 4 floors' buildings, GT-mode
     hypotheses exported on the card and seeded predictions, one directory of
     predictions a floor; and floor 0 again with seeded MHNet predictions,
     vanishing angles and inferred-mode hypotheses."""
@@ -780,7 +809,7 @@ def stage_d_inputs(root: Path, dev) -> dict:
     from salve_tpu_torch.hypotheses.export import export_single_building_wdo_alignment_hypotheses
 
     floors = {}
-    for seed, building, _, _ in stage_a_floors():
+    for seed, building, _, _ in stage_a_floors()[:STAGE_D_FLOORS]:
         bid = f"{seed:04d}"
         (root / "zind" / bid).mkdir(parents=True)
         annot = root / "zind" / bid / "zind_data.json"
@@ -1097,7 +1126,7 @@ def stitching_phase(dev, root: Path) -> dict:
     from salve_tpu_torch.stitching.cluster_stitching import stitch_clusters
 
     cpu = torch.device("cpu")
-    floors = [(seed, f"{seed:04d}", building) for seed, building, _, _ in stage_a_floors()]
+    floors = [(seed, f"{seed:04d}", building) for seed, building, _, _ in stage_a_floors()[:STAGE_D_FLOORS]]
     work = root / "stitching"
     cases = []  # (floor, layouts root, serialized poses, cluster files)
     for seed, bid, building in floors:
@@ -1187,6 +1216,214 @@ def stitching_phase(dev, root: Path) -> dict:
     log(f"phase 7: stitching per floor (median of {len(layout_rows)}): stitch_building_layouts "
         f"{out['layouts_ms_card_median']:.1f} ms card, {out['layouts_ms_cpu_median']:.1f} ms CPU; stitch_clusters "
         f"{out['clusters_ms_card_median']:.1f} ms card, {out['clusters_ms_cpu_median']:.1f} ms CPU")
+    return out
+
+
+def write_corpus_inputs(root: Path, bid: str, seed: int) -> dict:
+    """Floor `bid` of phase 6 as a ZInD raw directory: its panos as
+    1024x2048 JPEGs from the port's encoder (synthetic_bank at full size),
+    its depths as 512x1024 u16 PNGs. Returns pano ID -> pano path."""
+    import numpy as np
+
+    from salve_tpu_torch.dataset.seeded_predictions import pano_image_paths
+    from salve_tpu_torch.dataset.synthetic_bank import make_synthetic_pano_bank
+    from salve_tpu_torch.native import jpeg, png
+
+    building = json.loads((root / "zind" / bid / "zind_data.json").read_text())
+    paths = pano_image_paths(building)
+    ids = sorted(paths)
+    depths, rgbs = make_synthetic_pano_bank(len(ids), h=1024, w=2048, seed=seed)
+    out = {}
+    for j, pid in enumerate(ids):
+        f = root / "zind" / bid / paths[pid]
+        f.parent.mkdir(parents=True, exist_ok=True)
+        jpeg.write_jpeg(f, np.round(rgbs[j] * 255.0).astype(np.uint8))
+        d = root / "depth" / bid / f"{f.stem}.depth.png"
+        d.parent.mkdir(parents=True, exist_ok=True)
+        d.write_bytes(png.encode_png(np.ascontiguousarray(depths[j, ::2, ::2])))
+        out[pid] = str(f)
+    return out
+
+
+def file_tree(root: Path) -> dict:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def subset_hypotheses(src: Path, dst: Path, bid: str, n: int) -> list:
+    """The first `n` hypotheses of floor `bid` (gt_alignment_approx, then
+    incorrect_alignment), copied under `dst`: a prefix of each label type,
+    so each keeps its pair index and its file names. Returns (label, index,
+    path) of each."""
+    import shutil
+
+    kept = []
+    for label in ("gt_alignment_approx", "incorrect_alignment"):
+        files = sorted((src / bid / "floor_01" / label).glob("*.json"))[: max(n - len(kept), 0)]
+        (dst / bid / "floor_01" / label).mkdir(parents=True, exist_ok=True)
+        for k, f in enumerate(files):
+            shutil.copy(f, dst / bid / "floor_01" / label / f.name)
+            kept.append((label, k, f))
+    return kept
+
+
+def corpus_phase(dev, root: Path) -> dict:
+    """Phase 8: the file-contract corpus renderer on phase 6's floors
+    (module docstring)."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.geometry.sim2 import Sim2
+    from salve_tpu_torch.ops import warp
+    from salve_tpu_torch.rendering import bev_pair
+    from salve_tpu_torch.rendering import dataset_renderer as dr
+    from salve_tpu_torch.utils import profiler
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    panos = {bid: write_corpus_inputs(root, bid, seed) for seed, bid in enumerate(CORPUS_FLOORS)}
+    out = {"inputs_s": time.perf_counter() - t0, "floors": {}}
+    log(f"phase 8: wrote {sum(len(p) for p in panos.values())} 1024x2048 JPEG panos and 512x1024 u16 depth PNGs "
+        f"for floors {list(CORPUS_FLOORS)} in {out['inputs_s']:.1f} s")
+    common = dict(depth_save_root=str(root / "depth"), raw_dataset_dir=str(root / "zind"), split=None)
+
+    def render(tag, d, hyp_root, bids, use_warp=None, batch=dr.DEFAULT_BATCH_SIZE, layout=False):
+        """One arm over `bids`: the tree, per-floor rows, launches and stage timers."""
+        dst = root / "corpus" / tag
+        rows = []
+        device_mod.reset_launch_counts()
+        profiler.reset_stage_timers()
+        for bid in bids:
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            n = dr.render_pairs(
+                bev_save_root=str(dst if not layout else root / "corpus" / "unused"),
+                layout_save_root=str(dst) if layout else None,
+                render_modalities=["layout"] if layout else ["rgb_texture"],
+                hypotheses_save_root=str(hyp_root), building_id=bid, batch_size=batch, use_warp=use_warp,
+                mhnet_predictions_data_root=str(root / "mhnet") if layout else None, device=d, **common)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            pairs = n if layout else n // 2  # texture: one item per pair and surface
+            rows.append({"floor": bid, "items": n, "pairs": pairs, "ms": ms, "pairs_per_s": pairs / (ms / 1e3)})
+        launches = device_mod.launch_counts()
+        stages = {k: v for k, v in profiler.stage_summary().items() if k.startswith("render/")}
+        return dst, rows, launches, stages
+
+    def same_trees(what, a, b):
+        ta, tb = file_tree(a), file_tree(b)
+        if not ta or ta != tb:
+            raise AssertionError(f"phase 8: {what}: {len(ta)} files on the card, {len(tb)} on the CPU, "
+                                 f"{sum(ta.get(k) != v for k, v in tb.items())} differ")
+        return len(ta)
+
+    def show(tag, rows, launches, stages):
+        for r in rows:
+            log(f"phase 8: {tag}, floor {r['floor']}: {r['pairs']} pairs ({r['items']} pair-surface items) in "
+                f"{r['ms']:.1f} ms, {r['pairs_per_s']:.2f} pairs/s")
+        log(f"phase 8: {tag}: launches {launches}; stage timers " + ", ".join(
+            f"{k.split('/')[1]} {v['total_s'] * 1e3:.1f} ms ({v['count']})" for k, v in sorted(stages.items())))
+
+    # Warp arm, every pair of both floors, on the card and on the CPU.
+    warp_card, rows, launches, stages = render("warp_card", dev, root / "hyp", CORPUS_FLOORS, use_warp=True,
+                                               batch=dr.WARP_BATCH_SIZE)
+    show("warp arm, card", rows, launches, stages)
+    expect = {"splat": 4 * len(CORPUS_FLOORS), "fill": 4 * len(CORPUS_FLOORS), "warp": 0}
+    if launches != expect:
+        raise AssertionError(f"phase 8: warp arm launches {launches}, expected {expect} (an identity and an "
+                             f"extended bank a surface and floor)")
+    out["warp_card"] = {"rows": rows, "launches": launches, "stages": stages}
+    warp_cpu, rows, launches_cpu, stages = render("warp_cpu", cpu, root / "hyp", CORPUS_FLOORS, use_warp=True,
+                                                  batch=dr.WARP_BATCH_SIZE)
+    show("warp arm, CPU", rows, launches_cpu, stages)
+    out["warp_cpu"] = {"rows": rows, "stages": stages}
+    out["warp_files"] = same_trees("warp arm", warp_card, warp_cpu)
+    log(f"phase 8: warp arm, floors {list(CORPUS_FLOORS)}: card tree equals the CPU's, {out['warp_files']} files "
+        f"(sha256 of each)")
+
+    # A second call renders nothing: every pair's two files exist.
+    device_mod.reset_launch_counts()
+    again = sum(dr.render_pairs(bev_save_root=str(warp_card), layout_save_root=None, render_modalities=["rgb_texture"],
+                                hypotheses_save_root=str(root / "hyp"), building_id=bid, use_warp=True, device=dev,
+                                **common) for bid in CORPUS_FLOORS)
+    again_launches = device_mod.launch_counts()
+    if again != 0 or any(again_launches.values()):
+        raise AssertionError(f"phase 8: a second call rendered {again} items, launches {again_launches}")
+    log(f"phase 8: a second call renders {again} pairs, launches {again_launches}")
+
+    # Direct arm, 64 pairs of floor 0, on the card and the CPU; img2 equals the warp arm's.
+    bid0 = CORPUS_FLOORS[0]
+    kept = subset_hypotheses(root / "hyp", root / "hyp_direct", bid0, CORPUS_DIRECT_PAIRS)
+    direct_card, rows, launches, stages = render("direct_card", dev, root / "hyp_direct", [bid0], use_warp=False)
+    show("direct arm, card", rows, launches, stages)
+    n_batches = -(-len(kept) // dr.DEFAULT_BATCH_SIZE)  # a surface's work spans both label types
+    expect = {"splat": 2 * n_batches, "fill": 2 * n_batches, "warp": 0}
+    if launches != expect:
+        raise AssertionError(f"phase 8: direct arm launches {launches}, expected {expect} (one B1 and one B2 a "
+                             f"batch of {dr.DEFAULT_BATCH_SIZE} pairs and surface)")
+    out["direct_card"] = {"rows": rows, "launches": launches, "stages": stages}
+    direct_cpu, rows, _, stages = render("direct_cpu", cpu, root / "hyp_direct", [bid0], use_warp=False)
+    show("direct arm, CPU", rows, {}, stages)
+    out["direct_cpu"] = {"rows": rows, "stages": stages}
+    out["direct_files"] = same_trees("direct arm", direct_card, direct_cpu)
+    same_img2 = 0
+    for label, k, f in kept:
+        i2, uuid = int(f.stem.split("_")[1]), f.stem.split("__")[-1]
+        for surface in ("floor", "ceiling"):
+            name = bev_pair.bev_fname_from_img_fpath(k, uuid, surface, panos[bid0][i2])
+            a = (direct_card / label / bid0 / name).read_bytes()
+            if a != (warp_card / label / bid0 / name).read_bytes():
+                raise AssertionError(f"phase 8: img2 {label}/{name} differs between the direct and the warp arm")
+            same_img2 += 1
+    log(f"phase 8: direct arm, {len(kept)} pairs of floor {bid0}: card tree equals the CPU's "
+        f"({out['direct_files']} files); each of its {same_img2} img2 files equals the warp arm's")
+
+    # Layout modality on floor 0's seeded MHNet files (phase 6), card against CPU.
+    subset_hypotheses(root / "hyp", root / "hyp_layout", bid0, CORPUS_LAYOUT_PAIRS)
+    lay_card, rows, launches, stages = render("layout_card", dev, root / "hyp_layout", [bid0], layout=True)
+    show("layout, card", rows, launches, stages)
+    if any(launches.values()):
+        raise AssertionError(f"phase 8: the layout modality launched {launches}")
+    lay_cpu, rows_cpu, _, _ = render("layout_cpu", cpu, root / "hyp_layout", [bid0], layout=True)
+    show("layout, CPU", rows_cpu, {}, {})
+    out["layout"] = {"card": rows, "cpu": rows_cpu, "files": same_trees("layout", lay_card, lay_cpu)}
+    log(f"phase 8: layout, {CORPUS_LAYOUT_PAIRS} pairs of floor {bid0}: card tree equals the CPU's "
+        f"({out['layout']['files']} files)")
+
+    # One batch of 64: the host warp (as the renderer runs it, and single-threaded)
+    # against the port's torch gather on the card, fetch included.
+    ids = sorted(panos[bid0])
+    depths = torch.as_tensor(np.stack([bev_pair.load_depth_mm(str(root / "depth" / bid0 / f"{Path(panos[bid0][i]).stem}.depth.png"))
+                                       for i in ids]).astype(np.float32), device=dev)
+    rgbs = torch.as_tensor(np.stack([bev_pair.load_pano_rgb(panos[bid0][i]) for i in ids]).astype(np.float32), device=dev)
+    bank = warp.pack_rgb888(warp.render_identity_bank_extended(depths, rgbs, bev_pair._z_range_for_surface("floor"),
+                                                               bev_pair.BEVRenderConfig()))
+    bank_np = bank.cpu().numpy()
+    files = sorted((root / "hyp" / bid0 / "floor_01" / "incorrect_alignment").glob("*.json"))[: dr.WARP_BATCH_SIZE]
+    sims = [Sim2.from_json(f) for f in files]
+    R = np.stack([s.rotation for s in sims]).astype(np.float32)
+    t = np.stack([s.translation for s in sims]).astype(np.float32) * bev_pair.HOHO_S_ZIND_SCALE_FACTOR
+    idx = np.array([ids.index(int(f.stem.split("_")[0])) for f in files])
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        host8 = dr._host_warp(pool, 8, bank_np, R, t, idx)
+        w = {"host_threads8_ms": host_clock_ms(lambda: dr._host_warp(pool, 8, bank_np, R, t, idx))}
+    w["host_one_thread_ms"] = host_clock_ms(lambda: warp.warp_bank_sim2_nn_host(bank_np, R, t, bank_idx=idx))
+    R_d, t_d, idx_d = (torch.as_tensor(a, device=dev) for a in (R, t, idx))
+    w["card_gather_fetch_ms"] = host_clock_ms(lambda: warp.warp_bank_sim2_nn(bank, R_d, t_d, bank_idx=idx_d).cpu())
+    card = warp.warp_bank_sim2_nn(bank, R_d, t_d, bank_idx=idx_d).cpu().numpy()
+    w["mismatch_share"] = float(np.mean(card != host8))
+    out["warp_compare"] = w
+    log(f"phase 8: one batch of {len(files)} floor warps from 1001^2 banks to 501^2, host ms (median of 3): "
+        f"warp_bank_sim2_nn_host on 8 threads {w['host_threads8_ms']:.2f}, on one {w['host_one_thread_ms']:.2f}; "
+        f"torch warp_bank_sim2_nn on the card with the fetch {w['card_gather_fetch_ms']:.2f}; share of values "
+        f"that differ {w['mismatch_share']:.3e} (the reference's own bound between its two warps: 5e-5)")
+    if w["mismatch_share"] > 5e-5:
+        raise AssertionError("phase 8: the card's gather warp and the host warp differ beyond the reference's bound")
     return out
 
 
@@ -1512,10 +1749,16 @@ def main() -> int:
     st = report["stitching"]
     log(f"throughput: stitching {st['layouts_ms_card_median']:.1f} ms a floor on the card, "
         f"{st['layouts_ms_cpu_median']:.1f} ms on the CPU (stitch_building_layouts); stitch_clusters "
-        f"{st['clusters_ms_card_median']:.1f} / {st['clusters_ms_cpu_median']:.1f} ms (median of 8 floors)")
+        f"{st['clusters_ms_card_median']:.1f} / {st['clusters_ms_cpu_median']:.1f} ms (median of {STAGE_D_FLOORS} floors)")
+    cp = report["corpus"]
+    for arm in ("warp", "direct"):
+        card, cpu = cp[f"{arm}_card"]["rows"], cp[f"{arm}_cpu"]["rows"]
+        log(f"throughput: corpus {arm} arm " + "; ".join(
+            f"floor {a['floor']} {a['pairs_per_s']:.2f} pairs/s on the card ({a['ms']:.1f} ms), {b['pairs_per_s']:.2f} "
+            f"on the CPU ({b['ms']:.1f} ms)" for a, b in zip(card, cpu)))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
-            "shape",
+            "launches_corpus", "shape",
             "extra")
     rows = [{kk: row.get(kk) for kk in keys} for row in report["kernels"].values()]
     print(json.dumps({"kernels": rows}), flush=True)

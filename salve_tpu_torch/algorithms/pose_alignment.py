@@ -30,7 +30,7 @@ adds in the order XLA's compiled loop adds it at that pose count
 product into the add or subtract that consumes it, the port takes one FMA
 (`fma_f32_exact`); the jitted hypothesis scorer's rewrite of
 (sum / count) / scale into sum / (count * scale) is kept; and sqrt is
-IEEE's (`_sqrt`). The single fit outside the jit
+IEEE's (`ops/numerics.py:sqrt_f32`). The single fit outside the jit
 (`align_poses_sim3_ignore_missing`) runs op by op in the reference, so
 there products are rounded before they are summed.
 """
@@ -46,7 +46,7 @@ import torch
 from salve_tpu_torch.device import DeviceLike, resolve_device
 from salve_tpu_torch.geometry.poses import Pose3, Sim3, rotation_angle_deg
 from salve_tpu_torch.ops.libm import atan2f, cosf, sinf
-from salve_tpu_torch.ops.numerics import fma_f32_exact
+from salve_tpu_torch.ops.numerics import fma_f32_exact, sqrt_f32
 from salve_tpu_torch.ops.xla_sum import ordered_sum, ransac_plans
 
 DEFAULT_RANSAC_ALIGNMENT_DELETE_FRAC = 0.33
@@ -72,14 +72,6 @@ def _planar_params(poses: List[Optional[Pose3]]) -> Tuple[np.ndarray, np.ndarray
 
 def _f32(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """IEEE float32 sqrt. Torch's float32 sqrt on the CPU is off by an ulp
-    in about 18% of inputs; a float64 root within a few ulps rounds to the
-    correct float32 one, since a float32's root stays 2^-50 (relative) away
-    from every float32 rounding midpoint."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor, fused: bool = True) -> torch.Tensor:
@@ -188,7 +180,7 @@ def _ransac_errors(
     rot_err = torch.abs(atan2f(sinf(dtheta), cosf(dtheta)) * _RAD2DEG)
     Rcb = _matvec(R[:, None, :, :], cb[None, :, :])
     diff = fma_f32_exact(-s[:, None, None], Rcb + t[:, None, :], ca[None, :, :])
-    trans_err = _sqrt(_dot(diff, diff))
+    trans_err = sqrt_f32(_dot(diff, diff))
     mean_rot = ordered_sum(rot_err * w, -1, plan("rot")) / nkept
     mean_trans = ordered_sum(trans_err * w, -1, plan("trans")) / nkept
     return mean_rot, mean_trans, theta, t, s

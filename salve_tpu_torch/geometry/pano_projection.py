@@ -7,11 +7,13 @@ path (the `xp=np` case), which the MHNet prediction loader uses.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
+from salve_tpu_torch.ops import libm
 from salve_tpu_torch.ops.numerics import div_const
 
 
@@ -20,20 +22,26 @@ def get_uni_sphere_xyz(H: int, W: int, device=None) -> torch.Tensor:
 
     Same formula as salve_tpu/geometry/pano_projection.py:157: u spans the
     width with a half-pixel offset, v the height; x right, y down-ish, z up.
-    The divisions round as they do inside the JAX package's jitted
-    backprojection (ops/numerics.py).
+    Bit for bit as the JAX package's jitted backprojection computes it:
+    the divisions are products with float32 reciprocals (ops/numerics.py),
+    and sin and cos are glibc's float32 ones (ops/libm.py), which XLA:CPU
+    calls once a row (v) and once a column (u). The grid is a constant of
+    (H, W), made once a device: callers must not write into it.
     """
-    jj, ii = torch.meshgrid(
-        torch.arange(H, device=device) * 1.0,
-        torch.arange(W, device=device) * 1.0,
-        indexing="ij",
-    )
+    return _ray_grid(H, W, torch.device("cpu" if device is None else device))
+
+
+@functools.lru_cache(maxsize=None)
+def _ray_grid(H: int, W: int, device: torch.device) -> torch.Tensor:
+    jj = torch.arange(H, device=device, dtype=torch.float32)
+    ii = torch.arange(W, device=device, dtype=torch.float32)
     u = div_const(-(ii + 0.5), W) * 2 * math.pi
     v = (div_const(jj + 0.5, H) - 0.5) * math.pi
-    z = -torch.sin(v)
-    c = torch.cos(v)
-    y = c * torch.sin(u)
-    x = c * torch.cos(u)
+    cv, sv = libm.cosf(v), libm.sinf(v)
+    cu, su = libm.cosf(u), libm.sinf(u)
+    x = cv[:, None] * cu[None, :]
+    y = cv[:, None] * su[None, :]
+    z = (-sv)[:, None].expand(H, W)
     return torch.stack([x, y, z], dim=-1)
 
 

@@ -1,14 +1,23 @@
-"""JPEG decode through the system's libjpeg, equal to `imageio.v2.imread`.
+"""JPEG decode and encode by a codec written by hand (`jpeg_codec.c`).
 
-Counterpart of salve_tpu/native/ (whose batch loader resizes as it decodes);
-this one returns the decoded pixels as imageio does: (H, W, 3) uint8 RGB, or
-(H, W) uint8 for a grayscale file. The decode settings are Pillow's
-(`jpeg_decode.c`), so the arrays are equal byte for byte. Not nvJPEG: its
-IDCT and chroma upsampling are not libjpeg's.
+Counterpart of salve_tpu/native/ (whose batch loader resizes as it decodes)
+and of the cv2/imageio calls of salve_tpu/rendering/dataset_renderer.py:
 
-The shim is built with `cc` at first use and linked against `-ljpeg`; that
-needs libjpeg's header and its development symlink. Where they are missing
-`decode_jpeg` raises and names what is missing. Nothing is built at import.
+  * `decode_jpeg` / `decode_jpeg_bytes` return what `imageio.v2.imread`
+    returns, byte for byte: (H, W, 3) uint8 RGB, or (H, W) uint8 for a
+    grayscale file, with no EXIF rotation (Pillow's libjpeg-turbo at its
+    defaults: ISLOW IDCT, fancy upsampling, libjpeg's YCbCr -> RGB);
+  * `encode_jpeg_bytes` / `write_jpeg` return and write the bytes of
+    `cv2.imencode(".jpg", img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, q])`
+    (baseline 4:2:0, the standard Huffman tables).
+
+The codec links no library, so it builds wherever there is a C compiler: `cc`
+builds it at first use into its own `.so` under the git-ignored `build/`
+(`build.py`); nothing is built at import. Not nvJPEG: its IDCT and chroma
+upsampling are not libjpeg's. The calls go through `ctypes.CDLL`, which
+releases the GIL, so writer threads encode in parallel. What the codec does
+not read (arithmetic coding, lossless, 12-bit, CMYK, a progressive file with
+coefficient bits unsent) raises a ValueError that names it.
 """
 
 from __future__ import annotations
@@ -21,36 +30,34 @@ import numpy as np
 
 from salve_tpu_torch.native import build
 
-_MSG_BYTES = 200  # libjpeg's JMSG_LENGTH_MAX
-_BOUND = False
+_MSG_BYTES = 200  # MSG_BYTES of jpeg_codec.c
+_P, _UL, _I = ctypes.c_void_p, ctypes.c_ulong, ctypes.c_int
+_SIGNATURES = {
+    "salve_jpeg_info": ([_P, _UL, _P, _P, _P, ctypes.c_char_p], _I),
+    "salve_jpeg_decode": ([_P, _UL, _P, _UL, ctypes.c_char_p], _I),
+    "salve_jpeg_encode": ([_P, _I, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_UL), ctypes.c_char_p], _I),
+    "salve_jpeg_free": ([_P], None),
+}
 
 
-def _lib() -> ctypes.CDLL:
-    global _BOUND
-    try:
-        lib = build.load("jpeg_decode.c", ("-ljpeg",))
-    except RuntimeError as err:
-        raise RuntimeError(f"the JPEG decode needs libjpeg's header (jpeglib.h) and library (-ljpeg): {err}") from err
-    if not _BOUND:
-        P, UL = ctypes.c_void_p, ctypes.c_ulong
-        lib.salve_jpeg_info.argtypes = [P, UL, P, P, P, ctypes.c_char_p]
-        lib.salve_jpeg_decode.argtypes = [P, UL, P, UL, ctypes.c_char_p]
-        lib.salve_jpeg_info.restype = lib.salve_jpeg_decode.restype = ctypes.c_int
-        _BOUND = True
-    return lib
+def _fn(name: str):
+    return build.function("jpeg_codec.c", name, *_SIGNATURES[name])
+
+
+def _message(msg) -> str:
+    return msg.value.decode(errors="replace")
 
 
 def decode_jpeg_bytes(data: bytes) -> np.ndarray:
     """Decode a JPEG held in memory: (H, W, 3) or (H, W) uint8."""
-    lib = _lib()
     buf = np.frombuffer(data, dtype=np.uint8)
     msg = ctypes.create_string_buffer(_MSG_BYTES)
     h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    if lib.salve_jpeg_info(buf.ctypes.data, buf.size, ctypes.byref(h), ctypes.byref(w), ctypes.byref(c), msg):
-        raise ValueError(f"not a JPEG that this decoder reads: {msg.value.decode(errors='replace')}")
+    if _fn("salve_jpeg_info")(buf.ctypes.data, buf.size, ctypes.byref(h), ctypes.byref(w), ctypes.byref(c), msg):
+        raise ValueError(f"not a JPEG that this decoder reads: {_message(msg)}")
     out = np.empty((h.value, w.value, c.value), dtype=np.uint8)
-    if lib.salve_jpeg_decode(buf.ctypes.data, buf.size, out.ctypes.data, out.size, msg):
-        raise ValueError(f"JPEG decode failed: {msg.value.decode(errors='replace')}")
+    if _fn("salve_jpeg_decode")(buf.ctypes.data, buf.size, out.ctypes.data, out.size, msg):
+        raise ValueError(f"JPEG decode failed: {_message(msg)}")
     return out[..., 0] if c.value == 1 else out
 
 
@@ -58,3 +65,24 @@ def decode_jpeg(path: Union[str, Path]) -> np.ndarray:
     """Decode a JPEG file: (H, W, 3) or (H, W) uint8, as imageio.v2.imread."""
     return decode_jpeg_bytes(Path(path).read_bytes())
 
+
+def encode_jpeg_bytes(img_u8_rgb: np.ndarray, quality: int = 95) -> bytes:
+    """Encode an (H, W, 3) uint8 RGB image: cv2.imencode's bytes at `quality`."""
+    img = np.asarray(img_u8_rgb)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"the encoder takes (H, W, 3) uint8 RGB, got {img.shape} {img.dtype}")
+    img = np.ascontiguousarray(img)
+    msg = ctypes.create_string_buffer(_MSG_BYTES)
+    ptr, size = ctypes.c_void_p(), ctypes.c_ulong()
+    if _fn("salve_jpeg_encode")(img.ctypes.data, img.shape[0], img.shape[1], int(quality), ctypes.byref(ptr),
+                             ctypes.byref(size), msg):
+        raise ValueError(f"JPEG encode failed: {_message(msg)}")
+    try:
+        return ctypes.string_at(ptr.value, size.value)
+    finally:
+        _fn("salve_jpeg_free")(ptr)
+
+
+def write_jpeg(path: Union[str, Path], img: np.ndarray, quality: int = 95) -> None:
+    """Write `encode_jpeg_bytes(img, quality)` to `path`."""
+    Path(path).write_bytes(encode_jpeg_bytes(img, quality))

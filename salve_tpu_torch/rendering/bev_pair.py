@@ -1,9 +1,10 @@
 """BEV texture-map renders of panos in their own or a partner's frame.
 
-Port of the fused-scoring half of salve_tpu/rendering/bev_pair.py:
-`render_identity_batched`, `render_transformed_batched`, the render config,
-and the host-side IO helpers, which read images with the port's own JPEG and
-PNG readers (native/), not imageio.
+Port of salve_tpu/rendering/bev_pair.py: `render_identity_batched`,
+`render_transformed_batched` and the pair batch of the corpus renderer,
+`render_bev_pairs_batch_device`, the render config, and the host-side IO
+helpers, which read images with the port's own JPEG and PNG readers
+(native/), not imageio.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from salve_tpu_torch.native import jpeg, png
 from salve_tpu_torch.ops import backproject as bp
 from salve_tpu_torch.ops import bev as bev_ops
+from salve_tpu_torch.ops.numerics import fma_f32_exact
 
 # HoHoNet's pano center faces -x, ZInD's +y: a -90 deg rotation fixes it
 # (bev_rendering_utils.py:443). HoHoNet metric scale vs ZInD world-normalized
@@ -52,6 +54,25 @@ def surface_clouds(
     return xyz, c, v
 
 
+def _z_range_for_surface(surface_type: str) -> Tuple[float, float]:
+    if surface_type == "floor":
+        return bp.FLOOR_Z_RANGE
+    if surface_type == "ceiling":
+        return bp.CEILING_Z_RANGE
+    raise ValueError(f"Unknown surface type: {surface_type}")
+
+
+def _move_cloud(xyz: torch.Tensor, i2Ri1: torch.Tensor, i2ti1: torch.Tensor) -> torch.Tensor:
+    """Carry (B, N, 3) clouds through (R, t * 1.5), as the reference's einsum
+    followed by the scaled translation: XLA:CPU's dot accumulates j = 0, 1
+    with a fused multiply-add, and the rounded t * 1.5 is added after."""
+    x, y = xyz[..., 0], xyz[..., 1]
+    R = i2Ri1.to(torch.float32)[:, None]
+    t = (i2ti1.to(torch.float32) * HOHO_S_ZIND_SCALE_FACTOR)[:, None]
+    out = [fma_f32_exact(*torch.broadcast_tensors(R[..., i, 1], y, R[..., i, 0] * x)) + t[..., i] for i in range(2)]
+    return torch.stack([out[0], out[1], xyz[..., 2]], dim=-1)
+
+
 def render_identity_batched(
     depths: torch.Tensor, rgbs: torch.Tensor, z_range: Tuple[float, float], cfg: BEVRenderConfig
 ) -> torch.Tensor:
@@ -73,13 +94,40 @@ def render_transformed_batched(
     Pano 1's cloud goes through the hypothesis (R, t * 1.5) before the splat.
     """
     xyz, c, v = surface_clouds(depths, rgbs, z_range, cfg)
-    x, y = xyz[..., 0], xyz[..., 1]
-    R = i2Ri1.to(torch.float32)[:, None]
-    t = (i2ti1.to(torch.float32) * HOHO_S_ZIND_SCALE_FACTOR)[:, None]
-    xt = R[..., 0, 0] * x + R[..., 0, 1] * y + t[..., 0]
-    yt = R[..., 1, 0] * x + R[..., 1, 1] * y + t[..., 1]
-    xyz = torch.stack([xt, yt, xyz[..., 2]], dim=-1)
+    xyz = _move_cloud(xyz, i2Ri1, i2ti1)
     return bev_ops.render_bev_images_batched(xyz, c, v, cfg.img_px, cfg.meters_per_px)
+
+
+def render_bev_pairs_batch_device(
+    depths: torch.Tensor,
+    rgbs: torch.Tensor,
+    pair_indices: np.ndarray,
+    rotations: np.ndarray,
+    translations: np.ndarray,
+    surface_type: str,
+    cfg: BEVRenderConfig = BEVRenderConfig(),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Render a batch of hypothesis pairs against a pano bank on its device.
+
+    Args:
+        depths: (P, 512, 1024) float32 depth bank (mm); rgbs: (P, 512, 1024, 3).
+        pair_indices: (B, 2) bank rows (i1, i2) of each pair.
+        rotations: (B, 2, 2) i2Ri1; translations: (B, 2) i2ti1.
+
+    Returns:
+        (imgs1, imgs2): (B, h, w, 3) uint8 on the bank's device; img1 is pano
+        1 rendered in pano 2's frame. Both panos of every pair fold into one
+        2B render batch (salve_tpu's `_render_pairs_batched`): one B1 and one
+        B2 launch a batch.
+    """
+    z_range = _z_range_for_surface(surface_type)
+    dev = depths.device
+    idx = torch.as_tensor(np.concatenate([pair_indices[:, 0], pair_indices[:, 1]]).astype(np.int64), device=dev)
+    b = len(pair_indices)
+    xyz, c, v = surface_clouds(depths[idx], rgbs[idx], z_range, cfg)
+    xyz1 = _move_cloud(xyz[:b], torch.as_tensor(rotations, device=dev), torch.as_tensor(translations, device=dev))
+    imgs = bev_ops.render_bev_images_batched(torch.cat([xyz1, xyz[b:]]), c, v, cfg.img_px, cfg.meters_per_px)
+    return imgs[:b], imgs[b:]
 
 
 # ---------------------------------------------------------------------------

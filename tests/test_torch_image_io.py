@@ -1,8 +1,8 @@
 """The port's image readers against imageio, and the scoring CLI without imageio.
 
-`salve_tpu_torch/native/`: a JPEG decode through the system's libjpeg with
-Pillow's settings, and a PNG reader on zlib and numpy. Both must return
-exactly `imageio.v2.imread`'s arrays (tolerance: none, byte for byte):
+`salve_tpu_torch/native/`: a JPEG codec written by hand (its own tests are
+tests/test_torch_jpeg_codec.py), and a PNG reader on zlib and numpy. Both
+must return exactly `imageio.v2.imread`'s arrays (tolerance: none, byte for byte):
   * on the committed fixtures (`salve_tpu_torch/native/fixtures/`, written
     by `write_fixtures` below with Pillow and the port's PNG writer):
     4:2:0, 4:2:2 and 4:4:4 chroma, grayscale, odd sizes, progressive, an

@@ -1,8 +1,8 @@
 """Rules of the PyTorch port: no JAX, the card by default, no hidden fallback.
 
 Every `salve_tpu_torch` module and `chip_smoke.py` import neither jax, flax,
-optax, networkx, click, imageio, PIL nor matplotlib nor any `salve_tpu`
-module; the CLIs start with
+optax, networkx, click, imageio, PIL, cv2 nor matplotlib nor any `salve_tpu`
+module, and no build of the port links a JPEG library; the CLIs start with
 only the standard library, torch, numpy and scipy; entry points given no
 device run on the CUDA card and raise without one; each CUDA kernel wrapper
 launches its kernel or raises, and takes the plain version only for CPU
@@ -20,7 +20,7 @@ from salve_tpu_torch import device as device_mod
 from salve_tpu_torch.ops import fill, kernels, splat, warp
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "salve_tpu", "networkx", "click", "imageio", "PIL", "matplotlib")
+FORBIDDEN = ("jax", "flax", "optax", "salve_tpu", "networkx", "click", "imageio", "PIL", "cv2", "matplotlib")
 # Packages the card's machine lacks: the CLIs must start without them.
 ABSENT_ON_THE_CARD = ("jax", "flax", "optax", "salve_tpu", "networkx", "click", "matplotlib", "imageio", "PIL",
                       "cv2", "sklearn")
@@ -68,7 +68,7 @@ def test_clis_start_without_packages_the_card_lacks():
         "importlib.import_module(sys.argv[1]).main(['--help'])\n"
     )
     for cli in ("run_sfm", "export_alignment_hypotheses", "test_fused", "stitch_floor_plan",
-                "stitch_floor_plan_clusters"):
+                "stitch_floor_plan_clusters", "render_dataset_bev"):
         out = subprocess.run([sys.executable, "-c", script, f"salve_tpu_torch.cli.{cli}"], cwd=REPO,
                              capture_output=True, text=True, timeout=300)
         assert out.returncode == 0, out.stderr
@@ -209,17 +209,47 @@ def test_stitching_entry_points_raise_without_a_card(no_cuda, tmp_path):
     assert mask.tolist() == [[True, False], [False, False]]
 
 
+def test_renderer_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    """The file-contract renderer and the layout rasters take `device=None`
+    as the card and raise without one, even on empty input."""
+    from salve_tpu_torch.rendering.dataset_renderer import render_building_floor_pairs, render_pairs
+    from salve_tpu_torch.rendering.layout import rasterize_layout_batch, rasterize_single_layout
+
+    d = str(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_building_floor_pairs(d, d, d, d, "0000", "floor_01")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_pairs(d, d, d, d, None, ["rgb_texture"], building_id="0000")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rasterize_layout_batch([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rasterize_single_layout(np.zeros((3, 2)), [])
+    assert render_building_floor_pairs(d, d, d, d, "0000", "floor_01", device="cpu") == 0
+    assert render_pairs(d, d, d, d, None, ["rgb_texture"], building_id="0000", device="cpu") == 0
+    assert rasterize_layout_batch([], device="cpu").shape == (0, 501, 501, 3)
+
+
 def test_native_readers_build_apart_from_the_kernels():
-    """Each C shim is its own library, outside libsalve_kernels.so (a
-    machine without libjpeg loses the JPEG decode and nothing else)."""
+    """Each C file is its own library, outside libsalve_kernels.so, and links
+    no library: the JPEG codec is written by hand, so no build in the port
+    passes -ljpeg and nothing there includes a JPEG library's header."""
+    import re
+
     from salve_tpu_torch.native import build
 
-    jpeg_lib = build.library_path("jpeg_decode.c", ("-ljpeg",))
-    png_lib = build.library_path("png_unfilter.c", ())
+    jpeg_lib = build.library_path("jpeg_codec.c")
+    png_lib = build.library_path("png_unfilter.c")
     assert jpeg_lib.parent != png_lib.parent and "libsalve_kernels" not in (jpeg_lib.name + png_lib.name)
     assert not list(kernels.CSRC.glob("*.c"))
-    for src in ("jpeg_decode.c", "png_unfilter.c"):
-        assert "#include <torch" not in (build.HERE / src).read_text()
+    assert sorted(p.name for p in build.HERE.glob("*.c")) == ["jpeg_codec.c", "png_unfilter.c"]
+    for src in ("jpeg_codec.c", "png_unfilter.c"):
+        text = (build.HERE / src).read_text()
+        assert "#include <torch" not in text
+        assert not re.search(r"#include\s*[<\"](jpeglib|turbojpeg|jconfig|nvjpeg)", text), src
+    py = [p for p in sorted((REPO / "salve_tpu_torch").rglob("*.py"))] + [REPO / "chip_smoke.py"]
+    for f in py:
+        assert "-ljpeg" not in f.read_text() and "-lturbojpeg" not in f.read_text(), f
+    assert "-l" not in " ".join(build.CFLAGS)
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
