@@ -1,5 +1,5 @@
 """Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A, Stage D,
-stitching and the corpus renderer on one CUDA card.
+stitching, the corpus renderer and verifier training on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -104,6 +104,28 @@ Phases:
      batch of 64 through the host warp against the torch gather warp on the
      card, fetch included.
 
+  9. verifier training on phase 8's warp-arm corpus (floor 0, 415 pairs,
+     the train split; floor 1, 451 pairs, the val split, by
+     `split_overrides`): one train step at small width (ResNet-18, float32,
+     resize 72 / crop 64, batch 8, same initial weights and augmentation
+     draws) on the card against the CPU (loss within 1e-4, each gradient
+     within 1e-3 of its tensor's largest magnitude, running statistics
+     within 1e-4, then the eval step's probabilities within 1e-3 and labels
+     equal where the CPU's probability is clear of 0.5); then the released
+     model's config (`salve_tpu/configs/ceiling_floor_rgb.yaml`: ResNet-152,
+     12-channel stem, resize 234 / crop 224, batch 256, bf16, Adam + poly
+     LR) through `train()` for 2 epochs host-streamed (256 + 159 tuples a
+     train epoch) and 2 epochs on the device corpus (one batch a split and
+     epoch): finite losses, a best checkpoint whose reload gives the saved
+     model's eval logits bit for bit, `evaluate` writing 2 batch files that
+     cover the 451 val tuples in dataset order, and a loss that falls over
+     10 steps on one fixed batch of 32 (its crops and flips drawn once);
+     B1-B3 launch 0 times; then the train
+     step's device ms at batch 256 (CUDA events) and tuples/s, the host ms
+     of one streamed batch's 1,024 decodes and resizes, the device corpus's
+     gather ms, eval tuples/s, peak device memory, and the step's model
+     FLOPs (from the layer shapes) as a share of the dense bf16 peak.
+
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -111,6 +133,7 @@ and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import ctypes
+import gc
 import hashlib
 import json
 import statistics
@@ -149,6 +172,15 @@ RANSAC_ITERS = 1000
 CORPUS_FLOORS = ("0000", "0001")
 CORPUS_DIRECT_PAIRS = 64
 CORPUS_LAYOUT_PAIRS = 8
+# Phase 9: training on phase 8's warp-arm corpus, floor 0 the train split and
+# floor 1 the val split; the released model's config.
+TRAIN_CONFIG = "salve_tpu/configs/ceiling_floor_rgb.yaml"
+TRAIN_SPLITS = {"0000": "train", "0001": "val"}
+TRAIN_EPOCHS = 2
+FIXED_BATCH = 32
+FIXED_BATCH_STEPS = 10
+# Dense bf16 tensor-core peak of an H100 SXM (NVIDIA data sheet) at 700 W.
+BF16_FLOPS_PER_S = 989e12
 # Floors of phases 6 and 7: the first 4 of Stage A's 8 (cut from 8 when
 # phase 8 joined the run, to keep the whole run near its old length).
 STAGE_D_FLOORS = 4
@@ -474,6 +506,10 @@ def run(dev) -> dict:
         report["stage_d"] = stage_d_phase(dev, Path(tmp))
         report["stitching"] = stitching_phase(dev, Path(tmp))
         report["corpus"] = corpus_phase(dev, Path(tmp))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["training"] = training_phase(dev, Path(tmp) / "corpus" / "warp_card", Path(tmp) / "training")
     for name, row in report["kernels"].items():
         row["launches_corpus"] = {arm: report["corpus"][f"{arm}_card"]["launches"][name] for arm in ("warp", "direct")}
     return report
@@ -1427,6 +1463,251 @@ def corpus_phase(dev, root: Path) -> dict:
     return out
 
 
+def count_model_flops(model, images) -> float:
+    """Multiply-adds x 2 of one forward of `model` on `images`, from the
+    output shape of every conv and linear layer (forward hooks)."""
+    import torch
+
+    macs = []
+
+    def conv_hook(m, inp, out):
+        macs.append(out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1])
+
+    def linear_hook(m, inp, out):
+        macs.append(out.numel() * m.in_features)
+
+    hooks = [m.register_forward_hook(conv_hook if isinstance(m, torch.nn.Conv2d) else linear_hook)
+             for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model.eval()(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return 2.0 * float(sum(macs))
+
+
+def small_step_check(dev, corpus: Path) -> dict:
+    """One train step and one eval step at small width, the card against
+    the CPU, from the same weights and augmentation draws (phase 9)."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.dataset.bev_pairs import BEVPairDataset
+    from salve_tpu_torch.training import train as train_lib
+    from salve_tpu_torch.training import transforms
+    from salve_tpu_torch.training.config import TrainingConfig
+
+    cfg = TrainingConfig(num_layers=18, resize_h=72, resize_w=72, train_h=64, train_w=64, batch_size=8,
+                         compute_dtype="float32", data_root=str(corpus), split_overrides=dict(TRAIN_SPLITS))
+    ds = BEVPairDataset("train", cfg, workers=8)
+    idx = list(range(4)) + list(range(len(ds) - 4, len(ds)))  # 4 aligned, 4 misaligned
+    imgs, labels, _ = ds.load_batch(idx)
+    aug = transforms.draw_augment_params(torch.Generator().manual_seed(3), 8, imgs.shape[1], 72, 72, 64, 64)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        state = train_lib.create_train_state(cfg, torch.Generator().manual_seed(0), 10, d)
+        state, m = train_lib.make_train_step(cfg)(state, imgs, labels, aug)
+        ev = train_lib.make_eval_step(cfg)(state, imgs, labels)
+        out[d.type] = {
+            "loss": float(m["loss"]),
+            "grads": {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()},
+            "stats": {k: v.detach().cpu() for k, v in state.model.state_dict().items() if "running" in k},
+            "probs": ev["probs"][:, 1].cpu().numpy(),
+        }
+    card, cpu = out["cuda"], out["cpu"]
+    loss_diff = abs(card["loss"] - cpu["loss"])
+    grad_rel = max(float((card["grads"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                   for n, g in cpu["grads"].items() if g.abs().max() > 0)
+    stats_diff = max(float((card["stats"][k] - v).abs().max()) for k, v in cpu["stats"].items())
+    prob_diff = float(np.abs(card["probs"] - cpu["probs"]).max())
+    clear = np.abs(cpu["probs"] - 0.5) >= 1e-3
+    labels_equal = bool(np.array_equal(card["probs"][clear] > 0.5, cpu["probs"][clear] > 0.5))
+    launches = device_mod.launch_counts()
+    row = {"loss_card": card["loss"], "loss_cpu": cpu["loss"], "loss_diff": loss_diff, "grad_rel_max": grad_rel,
+           "running_stats_diff": stats_diff, "eval_prob_diff": prob_diff, "labels_equal": labels_equal}
+    log(f"phase 9: small width (ResNet-18 fp32, 72->64, batch 8), card vs CPU: loss {card['loss']:.6f} / "
+        f"{cpu['loss']:.6f} (|diff| {loss_diff:.2e}), largest gradient diff {grad_rel:.2e} of its tensor's max, "
+        f"running stats {stats_diff:.2e}, eval probs {prob_diff:.2e}, labels equal {labels_equal}")
+    if loss_diff > 1e-4 or grad_rel > 1e-3 or stats_diff > 1e-4 or prob_diff > 1e-3 or not labels_equal:
+        raise AssertionError(f"phase 9: the card's train step disagrees with the CPU's: {row}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 9: the small-width step launched {launches}")
+    return row
+
+
+def training_phase(dev, corpus: Path, root: Path) -> dict:
+    """Phase 9: the verifier trained on phase 8's warp-arm corpus (module
+    docstring). `corpus` is a rendered-BEV tree with buildings 0000 and 0001."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.dataset.bev_pairs import BEVPairDataset
+    from salve_tpu_torch.training import device_corpus, loop
+    from salve_tpu_torch.training import train as train_lib
+    from salve_tpu_torch.training import transforms
+    from salve_tpu_torch.training.config import load_training_config
+
+    t_phase = time.perf_counter()
+    device_mod.reset_launch_counts()
+    out = {"small": small_step_check(dev, corpus)}
+
+    repo = Path(__file__).resolve().parent
+    base = dataclasses.replace(load_training_config(str(repo / TRAIN_CONFIG)), data_root=str(corpus),
+                               num_epochs=TRAIN_EPOCHS, split_overrides=dict(TRAIN_SPLITS))
+    val_ds = BEVPairDataset("val", base, workers=base.workers)
+    probe = torch.as_tensor(val_ds.load_batch(range(FIXED_BATCH))[0], device=dev)
+
+    def eval_logits(model):
+        with torch.no_grad():
+            x = transforms.preprocess_eval(probe, base.train_h, base.train_w)
+            return model.eval()(train_lib.split_images(x)).float()
+
+    # Each best checkpoint: the saved model's eval logits on a fixed val batch.
+    saved = {}
+    save_checkpoint = train_lib.save_checkpoint
+
+    def save_and_probe(save_dir, state, epoch, val_mAcc, cfg):
+        path = save_checkpoint(save_dir, state, epoch, val_mAcc, cfg)
+        saved[path] = eval_logits(state.model)
+        return path
+
+    gathers = []
+    gather = device_corpus.DeviceCorpus.gather
+
+    def counted_gather(self, rows):
+        gathers.append(len(rows))
+        return gather(self, rows)
+
+    runs = {}
+    train_lib.save_checkpoint = save_and_probe
+    device_corpus.DeviceCorpus.gather = counted_gather
+    try:
+        for name, budget in (("streamed", 0.0), ("device_corpus", 1.0)):
+            cfg = dataclasses.replace(base, model_save_dirpath=str(root / name), device_corpus_gb=budget)
+            gathers.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = loop.train(cfg, seed=0, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            losses = res["train_avg_loss"] + res["val_avg_loss"]
+            runs[name] = {"seconds": secs, "results": res, "gathers": list(gathers)}
+            log(f"phase 9: train() {name}, {TRAIN_EPOCHS} epochs in {secs:.1f} s: train loss "
+                f"{[round(v, 6) for v in res['train_avg_loss']]}, val loss {[round(v, 6) for v in res['val_avg_loss']]}, "
+                f"val mAcc {[round(v, 4) for v in res['val_mAcc']]}, device-corpus gathers {gathers}")
+            if not np.all(np.isfinite(losses)) or len(res["val_mAcc"]) != TRAIN_EPOCHS:
+                raise AssertionError(f"phase 9: train() {name}: results {res}")
+            if (name == "streamed") == bool(gathers):
+                raise AssertionError(f"phase 9: train() {name} took the wrong data path: gathers {gathers}")
+    finally:
+        train_lib.save_checkpoint = save_checkpoint
+        device_corpus.DeviceCorpus.gather = gather
+    out["runs"] = runs
+
+    # The last best checkpoint of the streamed run reloads bit for bit.
+    ckpts = sorted(root.glob("streamed/*/train_ckpt.pt"))
+    if len(ckpts) != 1 or str(ckpts[0]) not in saved:
+        raise AssertionError(f"phase 9: checkpoints {ckpts}, saved {list(saved)}")
+    state = train_lib.create_train_state(base, torch.Generator().manual_seed(9), 1, dev)
+    state = train_lib.load_model_checkpoint(str(ckpts[0]), state)
+    if not torch.equal(eval_logits(state.model), saved[str(ckpts[0])]):
+        raise AssertionError("phase 9: the reloaded checkpoint's eval logits differ from the saved model's")
+    log(f"phase 9: checkpoint {ckpts[0].name} ({ckpts[0].stat().st_size / 1e6:.1f} MB, step {state.step}) "
+        f"reloads to the saved model's eval logits bit for bit ({FIXED_BATCH} val tuples)")
+    del state
+
+    # evaluate() on the val split: batch files covering the split in order.
+    preds = root / "preds"
+    prec, rec, macc = loop.evaluate(base, str(ckpts[0]), "val", str(preds), device=dev)
+    files = sorted(preds.glob("batch_*.json"), key=lambda f: int(f.stem.split("_")[1]))
+    got = [json.loads(f.read_text()) for f in files]
+    want = val_ds.data_list
+    covered = ([t for g in got for t in zip(g["fp0"], g["fp1"], g["y_true"])]
+               == [(t[0], t[1], t[-1]) for t in want])
+    out["evaluate"] = {"files": len(files), "precision": prec, "recall": rec, "mAcc": macc}
+    log(f"phase 9: evaluate on val: {len(files)} batch files, {sum(len(g['y_hat']) for g in got)} predictions "
+        f"covering the {len(want)} val tuples in dataset order: {covered}; precision={prec:.4f} recall={rec:.4f} "
+        f"mAcc={macc:.4f}")
+    if len(files) != 2 or not covered:
+        raise AssertionError("phase 9: evaluate's batch files do not cover the val split in order")
+
+    # Ten steps on one fixed batch of 32 (half aligned), its crops and flips
+    # drawn once, so each step sees the same inputs: the loss must fall.
+    train_ds = BEVPairDataset("train", base, workers=base.workers)
+    half = FIXED_BATCH // 2
+    imgs, labels, _ = train_ds.load_batch(list(range(half)) + list(range(len(train_ds) - half, len(train_ds))))
+    imgs = torch.as_tensor(imgs, device=dev)
+    state = train_lib.create_train_state(dataclasses.replace(base, batch_size=FIXED_BATCH),
+                                         torch.Generator().manual_seed(1), FIXED_BATCH_STEPS, dev)
+    step = train_lib.make_train_step(base)
+    aug = transforms.draw_augment_params(torch.Generator().manual_seed(2), *imgs.shape[:4], base.train_h,
+                                         base.train_w)
+    fixed = []
+    for _ in range(FIXED_BATCH_STEPS):
+        state, m = step(state, imgs, labels, aug)
+        fixed.append(float(m["loss"]))
+    out["fixed_batch_losses"] = fixed
+    log(f"phase 9: {FIXED_BATCH_STEPS} steps on one fixed batch of {FIXED_BATCH} at full width: losses "
+        f"{[round(v, 5) for v in fixed]}")
+    if not fixed[-1] < fixed[0] or not np.all(np.isfinite(fixed)):
+        raise AssertionError("phase 9: the loss did not fall on a fixed batch")
+    del state, imgs
+
+    launches = device_mod.launch_counts()
+    out["launches"] = launches
+    log(f"phase 9: launches of B1-B3 over the phase (the training path runs none): {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 9: the training path launched {launches}")
+
+    # Times on the card's clock at the released config's batch of 256.
+    b = base.batch_size
+    corpus_dev = device_corpus.DeviceCorpus(train_ds, dev)
+    rows = np.random.default_rng(0).permutation(len(train_ds))[:b]
+    batch_u8 = corpus_dev.gather(rows)
+    labels_b = torch.as_tensor(np.array([train_ds.data_list[r][-1] for r in rows]), device=dev)
+    state = train_lib.create_train_state(base, torch.Generator().manual_seed(4), 100, dev)
+    step = train_lib.make_train_step(base)
+    eval_step = train_lib.make_eval_step(base)
+    gen = torch.Generator().manual_seed(5)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = {"train_step_ms": time_ms(lambda: step(state, batch_u8, labels_b, gen), rounds=5, per_round=2, warmup=2,
+                                  prefill=False)}
+    t["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    t["train_tuples_per_s"] = b / (t["train_step_ms"] / 1e3)
+    t["eval_step_ms"] = time_ms(lambda: eval_step(state, batch_u8, labels_b), rounds=5, per_round=2, warmup=2,
+                                prefill=False)
+    t["eval_tuples_per_s"] = b / (t["eval_step_ms"] / 1e3)
+    t["gather_ms"] = time_ms(lambda: corpus_dev.gather(rows), rounds=5, per_round=10, warmup=2)
+    first = train_ds.data_list[:b]
+    t["host_load_ms"] = host_clock_ms(lambda: train_ds._load_tuples(first))
+    x = transforms.preprocess_eval(batch_u8, base.train_h, base.train_w)
+    flops = 3.0 * count_model_flops(state.model, train_lib.split_images(x))
+    t["step_model_flops"] = flops
+    t["bf16_peak_share"] = flops / (t["train_step_ms"] / 1e3) / BF16_FLOPS_PER_S
+    out["times"] = t
+    card = card_line()
+    log(f"phase 9: {card}: train step at batch {b} (ResNet-{base.num_layers}, {base.train_h}^2, "
+        f"{base.compute_dtype}) {t['train_step_ms']:.2f} ms device "
+        f"(CUDA events, median of 5 rounds of 2 after 2 warm-up steps), {t['train_tuples_per_s']:.1f} tuples/s; "
+        f"peak device memory {t['peak_memory_gb']:.2f} GB")
+    log(f"phase 9: {card}: eval step at batch {b} {t['eval_step_ms']:.2f} ms, {t['eval_tuples_per_s']:.1f} tuples/s; "
+        f"device-corpus gather of {b} tuples {t['gather_ms']:.4f} ms; host load of one streamed batch "
+        f"({train_ds.n_imgs * b} decodes and resizes, {base.workers} threads) {t['host_load_ms']:.1f} ms (median of 3)")
+    log(f"phase 9: {card}: step model FLOPs {flops / 1e12:.3f} T (forward multiply-adds x 2, x 3 for forward + "
+        f"backward), {100 * t['bf16_peak_share']:.2f}% of the {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak")
+    del state, corpus_dev, batch_u8
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 9: {out['seconds']:.1f} s")
+    return out
+
+
 def direct_batch_clouds(rng, depths, rgbs, n: int, render_cfg):
     """The floor clouds of a direct-mode batch: n random hypotheses' pano 1
     moved into the partner's frame (rendering/bev_pair.py:render_transformed_batched)."""
@@ -1752,10 +2033,14 @@ def main() -> int:
         f"{st['clusters_ms_card_median']:.1f} / {st['clusters_ms_cpu_median']:.1f} ms (median of {STAGE_D_FLOORS} floors)")
     cp = report["corpus"]
     for arm in ("warp", "direct"):
-        card, cpu = cp[f"{arm}_card"]["rows"], cp[f"{arm}_cpu"]["rows"]
+        rows_card, rows_cpu = cp[f"{arm}_card"]["rows"], cp[f"{arm}_cpu"]["rows"]
         log(f"throughput: corpus {arm} arm " + "; ".join(
             f"floor {a['floor']} {a['pairs_per_s']:.2f} pairs/s on the card ({a['ms']:.1f} ms), {b['pairs_per_s']:.2f} "
-            f"on the CPU ({b['ms']:.1f} ms)" for a, b in zip(card, cpu)))
+            f"on the CPU ({b['ms']:.1f} ms)" for a, b in zip(rows_card, rows_cpu)))
+    tr = report["training"]["times"]
+    log(f"throughput: training {tr['train_tuples_per_s']:.1f} tuples/s a train step at batch 256 "
+        f"({tr['train_step_ms']:.2f} ms), eval {tr['eval_tuples_per_s']:.1f} tuples/s, "
+        f"{100 * tr['bf16_peak_share']:.2f}% of the bf16 peak")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
             "launches_corpus", "shape",

@@ -5,8 +5,10 @@ on the card (pipeline/fused_inference.py) and only the Stage C->D
 batch_{i}.json contract is written, with fp0/fp1 in the exact BEV filename
 grammar Stage D parses back.
 
-Checkpoints: a reference `train_ckpt.pth` (loaded natively, models/weights.py)
-or a state_dict of the port's model saved with `torch.save` (`.pt`). The
+Checkpoints: a reference `train_ckpt.pth` (loaded natively, models/weights.py),
+salve_tpu's `train_ckpt.flax` (training/flax_checkpoint.py), the port's
+training checkpoint `train_ckpt.pt`, or a state_dict of the port's model saved
+with `torch.save` (`.pt`). The
 parser is the standard library's argparse (`main(argv)`), with the JAX
 package's flags.
 """
@@ -180,7 +182,14 @@ def load_verifier(ckpt_fpath: str, cfg):
     )
     if ckpt_fpath.endswith(".pth"):
         return load_reference_checkpoint(ckpt_fpath, model)
-    model.load_state_dict(torch.load(ckpt_fpath, map_location="cpu"), strict=True)
+    if ckpt_fpath.endswith(".flax"):
+        from salve_tpu_torch.training.flax_checkpoint import flax_checkpoint_to_port
+
+        model.load_state_dict(flax_checkpoint_to_port(ckpt_fpath, cfg.num_layers)["model"], strict=True)
+        return model
+    sd = torch.load(ckpt_fpath, map_location="cpu", weights_only=False)
+    # A training checkpoint (training/train.py:save_checkpoint) or a bare state_dict.
+    model.load_state_dict(sd["model"] if "opt_state" in sd else sd, strict=True)
     return model
 
 
@@ -191,7 +200,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--raw_dataset_dir", type=existing_path, required=True)
     p.add_argument("--depth_save_root", type=str, required=True)
     p.add_argument("--ckpt_fpath", type=existing_path, required=True,
-                   help="Reference train_ckpt.pth, or a state_dict of the port's model (.pt).")
+                   help="Reference train_ckpt.pth, salve_tpu's train_ckpt.flax, the port's train_ckpt.pt, "
+                        "or a state_dict of the port's model (.pt).")
     p.add_argument("--serialization_save_dir", type=str, required=True)
     p.add_argument("--building_id", type=str, default=None,
                    help="Single building (default: every building with hypotheses).")

@@ -6,16 +6,20 @@ names follow the reference's torch model (salve/models/early_fusion.py):
 the widened stem at `conv1`, the torchvision trunk at `resnet.`, the head at
 `fc`; so reference checkpoints load with `strict=True` once their unused
 `resnet.conv1.*` / `resnet.fc.*` entries are dropped (models/weights.py).
+
+A fresh model trains from `init_flax_style`'s weights, the Flax model's
+initializers, not torch's defaults.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
 from torch import nn
 
-from salve_tpu_torch.models.resnet import ResNetTrunk, get_resnet_feature_dim
+from salve_tpu_torch.models.resnet import BasicBlock, Bottleneck, ResNetTrunk, get_resnet_feature_dim
 
 _VALID_MODALITY_SETS = [
     ({"layout"}, 2),
@@ -78,3 +82,48 @@ class EarlyFusionCEResnet(nn.Module):
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=use_bf16):
             feats = self.resnet(self.conv1(x))
         return self.fc(feats.to(torch.float32))
+
+
+# jax.nn.initializers.variance_scaling's "truncated_normal": a standard
+# normal truncated to [-2, 2], scaled by sqrt(variance) over that
+# truncation's standard deviation.
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """LeCun normal (variance 1 / fan_in, truncated at 2 sigma), drawn from
+    `gen` as torch.nn.init.trunc_normal_ draws: inverse CDF of a uniform."""
+    lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
+    u = torch.rand(w.shape, generator=gen, dtype=torch.float64) * (2 * hi - 2 * lo) + (2 * lo - 1)
+    z = torch.erfinv(u).mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    w.copy_((z * (math.sqrt(1.0 / fan_in) / _TRUNCATED_STD)).to(w.dtype))
+
+
+@torch.no_grad()
+def init_flax_style(model: EarlyFusionCEResnet, gen: torch.Generator) -> EarlyFusionCEResnet:
+    """Re-initialize `model` as salve_tpu's Flax model initializes
+    (salve_tpu/models/resnet.py, early_fusion.py), drawing from `gen`:
+
+      * every conv kernel and the head's kernel: LeCun normal (flax's
+        nn.Conv / nn.Dense default), fan_in = in_channels * kh * kw;
+      * the head's bias: zero;
+      * batch norm: scale 1, bias 0, running mean 0, running variance 1,
+        except the scale of each residual branch's last batch norm, which
+        is 0 (resnet.py:50,75);
+
+    in module order. Returns the model.
+    """
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            _lecun_normal_(m.weight, m.weight[0].numel(), gen)
+        elif isinstance(m, nn.Linear):
+            _lecun_normal_(m.weight, m.in_features, gen)
+            m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    for m in model.modules():
+        if isinstance(m, BasicBlock):
+            m.bn2.weight.zero_()
+        elif isinstance(m, Bottleneck):
+            m.bn3.weight.zero_()
+    return model

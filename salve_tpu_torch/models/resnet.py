@@ -5,6 +5,9 @@ reference's trunks (salve/models/resnet_factory.py): basic blocks stride on
 conv1, bottleneck blocks on the 3x3 conv2, a projection shortcut
 (`downsample.0/1`) wherever the block changes shape. Convolutions run
 through `F.conv2d`/cuDNN, as the JAX package leaves them to XLA.
+
+Batch norm trains as Flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`
+does (salve_tpu/models/resnet.py:98-104), see `FlaxBatchNorm2d`.
 """
 
 from __future__ import annotations
@@ -25,8 +28,32 @@ def get_resnet_feature_dim(num_layers: int) -> int:
     return RESNET_SPECS[num_layers][2]
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """Batch norm with Flax's training rule; torch's in eval mode.
+
+    Training normalizes with the batch mean and the biased batch variance
+    (as torch does) and moves the running statistics as Flax does:
+    `ra = 0.9 * ra + 0.1 * stat` with the BIASED variance, where
+    `nn.BatchNorm2d` stores the unbiased one (n / (n - 1) larger). The
+    statistics and the normalization are float32 under bf16 autocast, as
+    Flax computes them in float32 for a bf16 module; the output keeps the
+    input's dtype. The running variance comes from the normalizer's own
+    1 / sqrt(var + eps), so no second pass reads the activation.
+    """
+
+    def __init__(self, c: int) -> None:
+        super().__init__(c, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = invstd.double().pow(-2).sub(self.eps).clamp_min(0.0).float()
+            self.running_mean.mul_(0.9).add_(mean.float() * 0.1)
+            self.running_var.mul_(0.9).add_(var * 0.1)
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 class BasicBlock(nn.Module):
@@ -35,14 +62,14 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int = 1) -> None:
         super().__init__()
         self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
-        self.bn1 = _bn(planes)
+        self.bn1 = FlaxBatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = _bn(planes)
+        self.bn2 = FlaxBatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or cin != planes:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, planes, 1, stride, bias=False), _bn(planes)
+                nn.Conv2d(cin, planes, 1, stride, bias=False), FlaxBatchNorm2d(planes)
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -59,16 +86,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         cout = planes * 4
         self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
-        self.bn1 = _bn(planes)
+        self.bn1 = FlaxBatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = _bn(planes)
+        self.bn2 = FlaxBatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, cout, 1, bias=False)
-        self.bn3 = _bn(cout)
+        self.bn3 = FlaxBatchNorm2d(cout)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride, bias=False), _bn(cout)
+                nn.Conv2d(cin, cout, 1, stride, bias=False), FlaxBatchNorm2d(cout)
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +117,7 @@ class ResNetTrunk(nn.Module):
         super().__init__()
         kind, stage_sizes, _ = RESNET_SPECS[num_layers]
         block = BasicBlock if kind == "basic" else Bottleneck
-        self.bn1 = _bn(64)
+        self.bn1 = FlaxBatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
         cin = 64

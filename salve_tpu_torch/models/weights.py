@@ -1,13 +1,19 @@
 """Verifier weights into the port's EarlyFusionCEResnet.
 
-Two sources:
+Three sources:
   * `state_dict_from_flax` — the JAX package's Flax (params, batch_stats)
     as numpy arrays; the inverse of
     salve_tpu/models/torch_weights.py:convert_early_fusion_state_dict.
     HWIO -> OIHW for convs, kernel.T for the head, scale/bias/mean/var for
     batch norm.
   * `load_reference_checkpoint` — a reference `train_ckpt.pth`, loaded
-    natively: the port keeps the reference's key names.
+    natively: the port keeps the reference's key names;
+  * `convert_torchvision_resnet_state_dict` — a vanilla torchvision
+    ImageNet ResNet state_dict (a local `.pth`; nothing is downloaded) as
+    the early-fusion model's start, as
+    salve_tpu/models/torch_weights.py:136 makes it: the trunk verbatim, the
+    stem tiled over the image slots (`_widen_stem`), a fresh head drawn from
+    `np.random.default_rng(rng_seed)` exactly as there.
 """
 
 from __future__ import annotations
@@ -88,3 +94,61 @@ def load_reference_checkpoint(ckpt_fpath: str, model: torch.nn.Module) -> torch.
     sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
     model.load_state_dict(port_state_dict_from_reference(sd), strict=True)
     return model
+
+
+def _strip_module(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+
+
+def _np32(t: Any) -> np.ndarray:
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, dtype=np.float32)
+
+
+def _widen_stem(kernel_rgb: np.ndarray, num_input_images: int) -> np.ndarray:
+    """Tile a pretrained (64, 3, kh, kw) stem kernel over the image slots,
+    scaled by 1 / n (salve_tpu/models/torch_weights.py:103, in OIHW)."""
+    tiled = np.concatenate([kernel_rgb] * num_input_images, axis=1)
+    return tiled / float(num_input_images)
+
+
+def convert_torchvision_resnet_state_dict(
+    sd: Mapping[str, Any],
+    num_layers: int,
+    num_input_images: int,
+    num_classes: int = 2,
+    rng_seed: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """Vanilla torchvision ImageNet state_dict -> the port's early-fusion state_dict.
+
+    The trunk (bn1, layer1..4) is taken verbatim under `resnet.`; the stem
+    is tiled to 3 * num_input_images channels; the 1000-class head is
+    replaced by a fresh `num_classes` head: kernel
+    N(0, 1 / feature_dim) from `np.random.default_rng(rng_seed)`, zero bias.
+    """
+    sd = _strip_module(sd)
+    kind, stage_sizes, feature_dim = RESNET_SPECS[num_layers]
+    n_convs = 2 if kind == "basic" else 3
+    out: Dict[str, torch.Tensor] = {"conv1.weight": _t(_widen_stem(_np32(sd["conv1.weight"]), num_input_images))}
+
+    def bn(src: str, dst: str) -> None:
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{dst}.{leaf}"] = _t(_np32(sd[f"{src}.{leaf}"]))
+        out[f"{dst}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+    bn("bn1", "resnet.bn1")
+    for stage, n_blocks in enumerate(stage_sizes, start=1):
+        for j in range(n_blocks):
+            t = f"layer{stage}.{j}"
+            for c in range(1, n_convs + 1):
+                out[f"resnet.{t}.conv{c}.weight"] = _t(_np32(sd[f"{t}.conv{c}.weight"]))
+                bn(f"{t}.bn{c}", f"resnet.{t}.bn{c}")
+            if f"{t}.downsample.0.weight" in sd:
+                out[f"resnet.{t}.downsample.0.weight"] = _t(_np32(sd[f"{t}.downsample.0.weight"]))
+                bn(f"{t}.downsample.1", f"resnet.{t}.downsample.1")
+    rng = np.random.default_rng(rng_seed)
+    fc_kernel = rng.normal(0.0, 1.0 / np.sqrt(feature_dim), (feature_dim, num_classes)).astype(np.float32)
+    out["fc.weight"] = _t(fc_kernel.T)
+    out["fc.bias"] = torch.zeros(num_classes, dtype=torch.float32)
+    return out

@@ -28,7 +28,9 @@ from typing import Dict, Sequence, Tuple
 
 HERE = Path(__file__).resolve().parent
 BUILD_ROOT = HERE.parents[1] / "build" / "salve_tpu_torch" / "native"
-CFLAGS = ("-O2", "-shared", "-fPIC")
+# -ffp-contract=off: no compiler fuses a product into an add (the batch
+# loader's resize in jpeg_codec.c rounds as the x86-64 reference does).
+CFLAGS = ("-O2", "-ffp-contract=off", "-pthread", "-shared", "-fPIC")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _FUNCTIONS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}

@@ -9,7 +9,11 @@ and of the cv2/imageio calls of salve_tpu/rendering/dataset_renderer.py:
     defaults: ISLOW IDCT, fancy upsampling, libjpeg's YCbCr -> RGB);
   * `encode_jpeg_bytes` / `write_jpeg` return and write the bytes of
     `cv2.imencode(".jpg", img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, q])`
-    (baseline 4:2:0, the standard Huffman tables).
+    (baseline 4:2:0, the standard Huffman tables);
+  * `decode_resize_batch` is the training loader's batch call: what
+    salve_tpu/dataset/bev_pairs.py:_load_batch_native returns through
+    native/jpeg_loader.cpp (libjpeg, its float bilinear resize, then
+    np.clip(np.round(x), 0, 255) to u8), from a pool of C threads.
 
 The codec links no library, so it builds wherever there is a C compiler: `cc`
 builds it at first use into its own `.so` under the git-ignored `build/`
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Union
+from typing import Sequence, Union
 
 import numpy as np
 
@@ -37,6 +41,7 @@ _SIGNATURES = {
     "salve_jpeg_decode": ([_P, _UL, _P, _UL, ctypes.c_char_p], _I),
     "salve_jpeg_encode": ([_P, _I, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_UL), ctypes.c_char_p], _I),
     "salve_jpeg_free": ([_P], None),
+    "salve_jpeg_decode_resize_batch": ([_P, _I, _I, _I, _P, _P, _P, _I], _I),
 }
 
 
@@ -86,3 +91,25 @@ def encode_jpeg_bytes(img_u8_rgb: np.ndarray, quality: int = 95) -> bytes:
 def write_jpeg(path: Union[str, Path], img: np.ndarray, quality: int = 95) -> None:
     """Write `encode_jpeg_bytes(img, quality)` to `path`."""
     Path(path).write_bytes(encode_jpeg_bytes(img, quality))
+
+
+def decode_resize_batch(paths: Sequence[Union[str, Path]], out_h: int, out_w: int, num_threads: int = 0) -> np.ndarray:
+    """Decode JPEG files and resize each to (out_h, out_w): (N, out_h, out_w, 3) uint8.
+
+    One C call on a pool of `num_threads` threads (0: one per CPU), the GIL
+    released. A file the codec refuses raises a ValueError naming it.
+    """
+    n = len(paths)
+    out = np.empty((n, out_h, out_w, 3), dtype=np.uint8)
+    if n == 0:
+        return out
+    c_paths = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])
+    status = np.zeros(n, dtype=np.int32)
+    msgs = ctypes.create_string_buffer(_MSG_BYTES * n)
+    ok = _fn("salve_jpeg_decode_resize_batch")(c_paths, n, int(out_h), int(out_w), out.ctypes.data,
+                                               status.ctypes.data, msgs, int(num_threads))
+    if ok != n:
+        i = int(np.flatnonzero(status)[0])
+        msg = msgs.raw[i * _MSG_BYTES:(i + 1) * _MSG_BYTES].split(b"\0", 1)[0].decode(errors="replace")
+        raise ValueError(f"{n - ok} of {n} files not decoded; the first, {paths[i]}: {msg}")
+    return out

@@ -1288,3 +1288,154 @@ int salve_jpeg_encode(const uint8_t *rgb, int height, int width, int quality_in,
 }
 
 void salve_jpeg_free(void *p) { free(p); }
+
+/* ============================================================ batch loader */
+
+/* The training loader's batch call: the port of salve_tpu/native/loader.py
+   over native/jpeg_loader.cpp. Each file is read and decoded (grayscale
+   becomes RGB by replication, as libjpeg's JCS_RGB output does), resized
+   with jpeg_loader.cpp:74-108's float bilinear filter (cv2's pixel-centre
+   sample positions, clamped edges, no antialiasing), and rounded to u8 as
+   salve_tpu/dataset/bev_pairs.py:_load_batch_native does with
+   np.clip(np.round(x), 0, 255): half to even. A pool of threads takes the
+   files in turn, as decode_resize_batch's does.
+
+   The library is built with -ffp-contract=off (native/build.py): otherwise
+   a compiler for a target with FMA (aarch64) may fuse `top + wy * (bot -
+   top)` into one rounding, where the x86-64 build of jpeg_loader.cpp (no
+   FMA in the base ISA) rounds twice. floor and rint are written out so the
+   library needs no libm. */
+
+#include <pthread.h>
+#include <unistd.h>
+
+static inline int floor_to_int(float v) {
+  int i = (int)v;
+  return v < (float)i ? i - 1 : i;
+}
+
+/* Nearest integer, ties to even, for 0 <= v < 2^23: adding 2^23 leaves no
+   fraction bits, so the add rounds in the current (nearest-even) mode. */
+static inline int round_half_even(float v) {
+  volatile float big = 8388608.0f;
+  return (int)((v + big) - big);
+}
+
+static void resize_bilinear_u8(const uint8_t *src, int w, int h, int ch, uint8_t *dst, int out_w, int out_h,
+                               int *x0s, int *x1s, float *wxs) {
+  const float sx = (float)w / out_w;
+  const float sy = (float)h / out_h;
+  for (int ox = 0; ox < out_w; ++ox) {
+    float fx = (ox + 0.5f) * sx - 0.5f;
+    int x0 = floor_to_int(fx);
+    wxs[ox] = fx - x0;
+    int x1 = x0 + 1;
+    x0s[ox] = clampi(x0, 0, w - 1);
+    x1s[ox] = clampi(x1, 0, w - 1);
+  }
+  for (int oy = 0; oy < out_h; ++oy) {
+    float fy = (oy + 0.5f) * sy - 0.5f;
+    int y0 = floor_to_int(fy);
+    float wy = fy - y0;
+    int y1 = clampi(y0 + 1, 0, h - 1);
+    y0 = clampi(y0, 0, h - 1);
+    const uint8_t *r0 = src + (size_t)y0 * w * ch, *r1 = src + (size_t)y1 * w * ch;
+    uint8_t *o = dst + (size_t)oy * out_w * 3;
+    for (int ox = 0; ox < out_w; ++ox) {
+      const float wx = wxs[ox];
+      const int a = x0s[ox] * ch, b = x1s[ox] * ch;
+      for (int c = 0; c < 3; ++c) {
+        const int k = ch == 1 ? 0 : c;
+        float v00 = r0[a + k], v01 = r0[b + k], v10 = r1[a + k], v11 = r1[b + k];
+        float top = v00 + wx * (v01 - v00);
+        float bot = v10 + wx * (v11 - v10);
+        o[ox * 3 + c] = (uint8_t)clampi(round_half_even(top + wy * (bot - top)), 0, 255);
+      }
+    }
+  }
+}
+
+/* Read and decode one file, then resize it into `dst`; 0, or -1 with `msg`. */
+static int load_one(const char *path, int out_h, int out_w, uint8_t *dst, char *msg) {
+  uint8_t *data = NULL, *pix = NULL;
+  int *x0s = NULL, *x1s = NULL;
+  float *wxs = NULL;
+  int rc = -1, h, w, c;
+  FILE *f = fopen(path, "rb");
+  if (!f) {
+    snprintf(msg, MSG_BYTES, "cannot open the file");
+    return -1;
+  }
+  long size = fseek(f, 0, SEEK_END) == 0 ? ftell(f) : -1;
+  if (size <= 0 || fseek(f, 0, SEEK_SET) != 0) {
+    snprintf(msg, MSG_BYTES, "cannot read the file's size");
+    goto done;
+  }
+  data = malloc((size_t)size);
+  if (!data || fread(data, 1, (size_t)size, f) != (size_t)size) {
+    snprintf(msg, MSG_BYTES, "cannot read the file");
+    goto done;
+  }
+  if (salve_jpeg_info(data, (unsigned long)size, &h, &w, &c, msg)) goto done;
+  pix = malloc((size_t)h * w * c);
+  x0s = malloc(sizeof(int) * (size_t)out_w);
+  x1s = malloc(sizeof(int) * (size_t)out_w);
+  wxs = malloc(sizeof(float) * (size_t)out_w);
+  if (!pix || !x0s || !x1s || !wxs) {
+    snprintf(msg, MSG_BYTES, "out of memory");
+    goto done;
+  }
+  if (salve_jpeg_decode(data, (unsigned long)size, pix, (unsigned long)h * w * c, msg)) goto done;
+  resize_bilinear_u8(pix, w, h, c, dst, out_w, out_h, x0s, x1s, wxs);
+  rc = 0;
+done:
+  fclose(f);
+  free(data);
+  free(pix);
+  free(x0s);
+  free(x1s);
+  free(wxs);
+  return rc;
+}
+
+typedef struct {
+  const char *const *paths;
+  int n, out_h, out_w;
+  uint8_t *out;
+  int *status;
+  char *msgs;
+  int next;
+} batch_t;
+
+static void *batch_worker(void *arg) {
+  batch_t *B = arg;
+  const size_t stride = (size_t)B->out_h * B->out_w * 3;
+  for (;;) {
+    int i = __atomic_fetch_add(&B->next, 1, __ATOMIC_RELAXED);
+    if (i >= B->n) return NULL;
+    B->status[i] = load_one(B->paths[i], B->out_h, B->out_w, B->out + stride * i, B->msgs + (size_t)i * MSG_BYTES);
+  }
+}
+
+/* Decode `n` JPEG files and resize each to (out_h, out_w, 3) u8 in `out`;
+   status[i] is 0, or -1 with a message at msgs + i * MSG_BYTES. Returns the
+   number decoded. num_threads <= 0 takes one thread per online CPU. */
+int salve_jpeg_decode_resize_batch(const char *const *paths, int n, int out_h, int out_w, uint8_t *out, int *status,
+                                   char *msgs, int num_threads) {
+  if (n <= 0) return 0;
+  if (num_threads <= 0) num_threads = (int)sysconf(_SC_NPROCESSORS_ONLN);
+  if (num_threads < 1) num_threads = 1;
+  if (num_threads > n) num_threads = n;
+  batch_t B = {paths, n, out_h, out_w, out, status, msgs, 0};
+  pthread_t *threads = malloc(sizeof(pthread_t) * (size_t)num_threads);
+  int started = 0;
+  if (threads)
+    for (; started < num_threads; ++started)
+      if (pthread_create(&threads[started], NULL, batch_worker, &B)) break;
+  if (started == 0) batch_worker(&B);
+  for (int t = 0; t < started; ++t) pthread_join(threads[t], NULL);
+  free(threads);
+  int ok = 0;
+  for (int i = 0; i < n; ++i) ok += status[i] == 0;
+  return ok;
+}

@@ -1,8 +1,8 @@
 """Rules of the PyTorch port: no JAX, the card by default, no hidden fallback.
 
 Every `salve_tpu_torch` module and `chip_smoke.py` import neither jax, flax,
-optax, networkx, click, imageio, PIL, cv2 nor matplotlib nor any `salve_tpu`
-module, and no build of the port links a JPEG library; the CLIs start with
+optax, networkx, click, imageio, PIL, cv2, matplotlib, yaml nor msgpack nor
+any `salve_tpu` module, and no build of the port links a JPEG library; the CLIs start with
 only the standard library, torch, numpy and scipy; entry points given no
 device run on the CUDA card and raise without one; each CUDA kernel wrapper
 launches its kernel or raises, and takes the plain version only for CPU
@@ -20,10 +20,11 @@ from salve_tpu_torch import device as device_mod
 from salve_tpu_torch.ops import fill, kernels, splat, warp
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "salve_tpu", "networkx", "click", "imageio", "PIL", "cv2", "matplotlib")
+FORBIDDEN = ("jax", "flax", "optax", "salve_tpu", "networkx", "click", "imageio", "PIL", "cv2", "matplotlib",
+             "yaml", "msgpack")
 # Packages the card's machine lacks: the CLIs must start without them.
 ABSENT_ON_THE_CARD = ("jax", "flax", "optax", "salve_tpu", "networkx", "click", "matplotlib", "imageio", "PIL",
-                      "cv2", "sklearn")
+                      "cv2", "sklearn", "yaml", "msgpack")
 
 
 def _port_files():
@@ -68,7 +69,7 @@ def test_clis_start_without_packages_the_card_lacks():
         "importlib.import_module(sys.argv[1]).main(['--help'])\n"
     )
     for cli in ("run_sfm", "export_alignment_hypotheses", "test_fused", "stitch_floor_plan",
-                "stitch_floor_plan_clusters", "render_dataset_bev"):
+                "stitch_floor_plan_clusters", "render_dataset_bev", "train", "test"):
         out = subprocess.run([sys.executable, "-c", script, f"salve_tpu_torch.cli.{cli}"], cwd=REPO,
                              capture_output=True, text=True, timeout=300)
         assert out.returncode == 0, out.stderr
@@ -227,6 +228,30 @@ def test_renderer_entry_points_raise_without_a_card(no_cuda, tmp_path):
     assert render_building_floor_pairs(d, d, d, d, "0000", "floor_01", device="cpu") == 0
     assert render_pairs(d, d, d, d, None, ["rgb_texture"], building_id="0000", device="cpu") == 0
     assert rasterize_layout_batch([], device="cpu").shape == (0, 501, 501, 3)
+
+
+def test_training_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    """train(), evaluate() and both training CLIs take the card by default
+    and raise without one, before they read any data."""
+    from salve_tpu_torch.cli import test as test_cli
+    from salve_tpu_torch.cli import train as train_cli
+    from salve_tpu_torch.training.config import TrainingConfig
+    from salve_tpu_torch.training.loop import evaluate, train
+
+    cfg = TrainingConfig(num_layers=18, data_root=str(tmp_path / "absent"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate(cfg, str(tmp_path / "ckpt.pt"), "test", str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--data_root", str(tmp_path), "--model_save_dirpath", str(tmp_path / "m")])
+    ckpt = tmp_path / "ckpt.pt"
+    ckpt.write_bytes(b"")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        test_cli.main(["--ckpt_fpath", str(ckpt), "--serialization_save_dir", str(tmp_path / "p")])
+    assert not (tmp_path / "m").exists() and not (tmp_path / "p").exists()
+    with pytest.raises(RuntimeError, match="absent"):
+        train(cfg, device="cpu")
 
 
 def test_native_readers_build_apart_from_the_kernels():
