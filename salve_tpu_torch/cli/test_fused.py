@@ -168,11 +168,10 @@ def score_building_fused(
 
 
 def load_verifier(ckpt_fpath: str, cfg):
-    """Build the verifier for `cfg` and load a `.pth` or `.pt` checkpoint."""
-    import torch
-
+    """Build the verifier for `cfg` and load any checkpoint
+    `models/weights.py:read_verifier_checkpoint` accepts."""
     from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet
-    from salve_tpu_torch.models.weights import load_reference_checkpoint
+    from salve_tpu_torch.models.weights import read_verifier_checkpoint
 
     model = EarlyFusionCEResnet(
         num_layers=cfg.num_layers,
@@ -180,16 +179,7 @@ def load_verifier(ckpt_fpath: str, cfg):
         compute_dtype=cfg.compute_dtype,
         append_pair_difference=cfg.append_pair_difference,
     )
-    if ckpt_fpath.endswith(".pth"):
-        return load_reference_checkpoint(ckpt_fpath, model)
-    if ckpt_fpath.endswith(".flax"):
-        from salve_tpu_torch.training.flax_checkpoint import flax_checkpoint_to_port
-
-        model.load_state_dict(flax_checkpoint_to_port(ckpt_fpath, cfg.num_layers)["model"], strict=True)
-        return model
-    sd = torch.load(ckpt_fpath, map_location="cpu", weights_only=False)
-    # A training checkpoint (training/train.py:save_checkpoint) or a bare state_dict.
-    model.load_state_dict(sd["model"] if "opt_state" in sd else sd, strict=True)
+    model.load_state_dict(read_verifier_checkpoint(ckpt_fpath, cfg.num_layers)["model"], strict=True)
     return model
 
 

@@ -126,11 +126,11 @@ class BEVPairDataset:
     so every epoch after the first skips disk and decode.
     """
 
-    def __init__(self, split: str, args: TrainingConfig, data_root: str = "", workers: int = 8) -> None:
+    def __init__(self, split: str, args: TrainingConfig, workers: int = 8) -> None:
         self.args = args
         self.split = split
         self.workers = workers
-        self.data_list = make_dataset(split, data_root or args.data_root, args)
+        self.data_list = make_dataset(split, args.data_root, args)
         self.n_imgs = len(self.data_list[0]) - 1 if self.data_list else 0
         cache_gb = getattr(args, "decoded_cache_gb", 0.0) or 0.0
         est_bytes = len(self.data_list) * self.n_imgs * args.resize_h * args.resize_w * 3
@@ -162,13 +162,13 @@ class BEVPairDataset:
         return imgs.reshape(len(tuples), n_imgs, self.args.resize_h, self.args.resize_w, 3)
 
     def iter_batches(
-        self, batch_size: int, shuffle: bool, seed: int = 0, drop_last: bool = False
+        self, batch_size: int, shuffle: bool, seed: int = 0
     ) -> Iterator[Tuple[np.ndarray, np.ndarray, List[Tuple]]]:
+        """Yields load_batch's triples in order, or in `random.Random(seed)`'s
+        shuffle of it; the tail batch is kept (the reference's training loop
+        does not drop it)."""
         order = list(range(len(self.data_list)))
         if shuffle:
             random.Random(seed).shuffle(order)
         for start in range(0, len(order), batch_size):
-            chunk = order[start : start + batch_size]
-            if drop_last and len(chunk) < batch_size:
-                break
-            yield self.load_batch(chunk)
+            yield self.load_batch(order[start : start + batch_size])

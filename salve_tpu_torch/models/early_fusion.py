@@ -47,7 +47,9 @@ class EarlyFusionCEResnet(nn.Module):
     Called with a sequence of (B, 3, H, W) images, concatenated along the
     channel axis. Parameters stay float32; with compute_dtype "bfloat16" the
     stem and trunk run under bf16 autocast (as the Flax model computes in
-    bf16 over float32 parameters) and the head runs in float32.
+    bf16 over float32 parameters) and the head runs in float32. A model
+    cast with `.double()` (compute_dtype "float32") runs in float64
+    throughout, its inputs cast to it.
     """
 
     def __init__(
@@ -77,11 +79,11 @@ class EarlyFusionCEResnet(nn.Module):
         images = list(images)
         if self.append_pair_difference:
             images += [images[i] - images[i + 1] for i in range(0, len(images), 2)]
-        x = torch.cat(images, dim=1)
+        x = torch.cat(images, dim=1).to(self.conv1.weight.dtype)
         use_bf16 = self.compute_dtype == torch.bfloat16
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=use_bf16):
             feats = self.resnet(self.conv1(x))
-        return self.fc(feats.to(torch.float32))
+        return self.fc(feats.to(self.fc.weight.dtype))
 
 
 # jax.nn.initializers.variance_scaling's "truncated_normal": a standard

@@ -37,7 +37,9 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     `nn.BatchNorm2d` stores the unbiased one (n / (n - 1) larger). The
     statistics and the normalization are float32 under bf16 autocast, as
     Flax computes them in float32 for a bf16 module; the output keeps the
-    input's dtype. The running variance comes from the normalizer's own
+    input's dtype; the running statistics keep their own (float32, or
+    float64 in a model cast with `.double()`). The running variance comes
+    from the normalizer's own
     1 / sqrt(var + eps), so no second pass reads the activation.
     """
 
@@ -49,8 +51,8 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
-            var = invstd.double().pow(-2).sub(self.eps).clamp_min(0.0).float()
-            self.running_mean.mul_(0.9).add_(mean.float() * 0.1)
+            var = invstd.double().pow(-2).sub(self.eps).clamp_min(0.0).to(self.running_var.dtype)
+            self.running_mean.mul_(0.9).add_(mean.to(self.running_mean.dtype) * 0.1)
             self.running_var.mul_(0.9).add_(var * 0.1)
             self.num_batches_tracked.add_(1)
         return out

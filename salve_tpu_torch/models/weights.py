@@ -6,8 +6,10 @@ Three sources:
     salve_tpu/models/torch_weights.py:convert_early_fusion_state_dict.
     HWIO -> OIHW for convs, kernel.T for the head, scale/bias/mean/var for
     batch norm.
-  * `load_reference_checkpoint` — a reference `train_ckpt.pth`, loaded
-    natively: the port keeps the reference's key names;
+  * `read_verifier_checkpoint` — a reference `train_ckpt.pth`, loaded
+    natively (the port keeps the reference's key names), the port's
+    `train_ckpt.pt`, or salve_tpu's `train_ckpt.flax`; the one place that
+    tells these formats apart (`load_reference_checkpoint` loads its result);
   * `convert_torchvision_resnet_state_dict` — a vanilla torchvision
     ImageNet ResNet state_dict (a local `.pth`; nothing is downloaded) as
     the early-fusion model's start, as
@@ -74,14 +76,35 @@ def state_dict_from_flax(
     return sd
 
 
+def _strip_module(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Strip DataParallel's `module.` key prefix."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+
+
 def port_state_dict_from_reference(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Strip DataParallel's `module.` and drop the unused trunk stem/head."""
-    out = {}
-    for k, v in sd.items():
-        k = k[len("module."):] if k.startswith("module.") else k
-        if not k.startswith(_UNUSED_REFERENCE_PREFIXES):
-            out[k] = v
-    return out
+    return {k: v for k, v in _strip_module(sd).items() if not k.startswith(_UNUSED_REFERENCE_PREFIXES)}
+
+
+def read_verifier_checkpoint(ckpt_fpath: str, num_layers: int) -> Dict[str, Any]:
+    """Any verifier checkpoint the port accepts, as {"model": state_dict}
+    plus "opt_state" and "step" for a training checkpoint:
+
+      * salve_tpu's `train_ckpt.flax` (training/flax_checkpoint.py);
+      * the port's `train_ckpt.pt` ({"model", "opt_state", "step"},
+        training/train.py:save_checkpoint);
+      * a reference `train_ckpt.pth` ({"state_dict": ...}) or a bare
+        state_dict, through `port_state_dict_from_reference`.
+    """
+    if ckpt_fpath.endswith(".flax"):
+        from salve_tpu_torch.training.flax_checkpoint import flax_checkpoint_to_port
+
+        return flax_checkpoint_to_port(ckpt_fpath, num_layers)
+    ckpt = torch.load(ckpt_fpath, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "model" in ckpt and "opt_state" in ckpt:
+        return ckpt
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {"model": port_state_dict_from_reference(sd)}
 
 
 def load_reference_checkpoint(ckpt_fpath: str, model: torch.nn.Module) -> torch.nn.Module:
@@ -90,14 +113,8 @@ def load_reference_checkpoint(ckpt_fpath: str, model: torch.nn.Module) -> torch.
     Strict: every remaining key must match the model's, and every parameter
     must be present.
     """
-    ckpt = torch.load(ckpt_fpath, map_location="cpu", weights_only=False)
-    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
-    model.load_state_dict(port_state_dict_from_reference(sd), strict=True)
+    model.load_state_dict(read_verifier_checkpoint(ckpt_fpath, model.num_layers)["model"], strict=True)
     return model
-
-
-def _strip_module(sd: Mapping[str, Any]) -> Dict[str, Any]:
-    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
 
 
 def _np32(t: Any) -> np.ndarray:

@@ -72,7 +72,7 @@ class DeviceCorpus:
         return torch.index_select(self.corpus, 0, idx)
 
     def iter_batches(
-        self, batch_size: int, shuffle: bool, seed: int = 0, drop_last: bool = True
+        self, batch_size: int, shuffle: bool, seed: int = 0
     ) -> Iterator[Tuple[torch.Tensor, np.ndarray, List[Tuple], np.ndarray]]:
         """Yields (imgs on the device, labels host i32, tuples, valid host bool).
 

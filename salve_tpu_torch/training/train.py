@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet, init_flax_style
+from salve_tpu_torch.models.weights import read_verifier_checkpoint
 from salve_tpu_torch.training import transforms
 from salve_tpu_torch.training.config import TrainingConfig
 
@@ -271,22 +272,6 @@ def save_checkpoint(save_dir: str, state: TrainState, epoch: int, val_mAcc: floa
     return ckpt_fpath
 
 
-def _read_checkpoint(ckpt_fpath: str, state: TrainState) -> Dict[str, Any]:
-    """Any accepted checkpoint as {"model", optionally "opt_state" and "step"}."""
-    if ckpt_fpath.endswith(".flax"):
-        from salve_tpu_torch.training.flax_checkpoint import flax_checkpoint_to_port
-
-        return flax_checkpoint_to_port(ckpt_fpath, state.model.num_layers)
-    ckpt = torch.load(ckpt_fpath, map_location="cpu", weights_only=False)
-    if isinstance(ckpt, dict) and "model" in ckpt and "opt_state" in ckpt:
-        return ckpt
-    # A reference train_ckpt.pth ({"state_dict": ...}) or a bare state_dict.
-    from salve_tpu_torch.models.weights import port_state_dict_from_reference
-
-    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
-    return {"model": port_state_dict_from_reference(sd)}
-
-
 def load_model_checkpoint(ckpt_fpath: str, state: TrainState, params_only: bool = False) -> TrainState:
     """Restore a checkpoint into `state`.
 
@@ -298,7 +283,7 @@ def load_model_checkpoint(ckpt_fpath: str, state: TrainState, params_only: bool 
     the fresh optimizer and step 0: the fine-tune entry point (a finished
     run's step is past the new run's poly-LR horizon, where lr = 0).
     """
-    payload = _read_checkpoint(ckpt_fpath, state)
+    payload = read_verifier_checkpoint(ckpt_fpath, state.model.num_layers)
     state.model.load_state_dict(payload["model"], strict=True)
     if params_only or "opt_state" not in payload:
         return state

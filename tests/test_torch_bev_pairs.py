@@ -206,8 +206,8 @@ def test_filename_parsers_and_building_ids(bev_tree):
 
 @pytest.mark.parametrize("modalities", MODALITY_SETS[2:4], ids=["floor", "ceiling+floor"])
 def test_iter_batches_equal_salve_tpu(bev_tree, modalities, monkeypatch):
-    """Order, labels and tuples of every batch, shuffled and not, with and
-    without drop_last; salve_tpu's images come from its own loader's
+    """Order, labels and tuples of every batch, shuffled and not, tail batch
+    included; salve_tpu's images come from its own loader's
     arithmetic (the reference library built privately, see
     `_reference_loader`) or, without g++/libjpeg, are not compared here."""
     jcfg, tcfg = _configs(bev_tree, modalities)
@@ -227,7 +227,7 @@ def test_iter_batches_equal_salve_tpu(bev_tree, modalities, monkeypatch):
     # comes from the private build instead.
     monkeypatch.setattr(jbp.BEVPairDataset, "_load_tuples", reference_pixels)
     assert len(tds) == len(jds) > 4
-    for kw in (dict(shuffle=False), dict(shuffle=True, seed=3), dict(shuffle=True, seed=4, drop_last=True)):
+    for kw in (dict(shuffle=False), dict(shuffle=True, seed=3), dict(shuffle=True, seed=4)):
         ref = list(jds.iter_batches(4, **kw))
         got = list(tds.iter_batches(4, **kw))
         assert len(got) == len(ref) > 1
