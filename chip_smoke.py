@@ -1,5 +1,6 @@
 """Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A, Stage D,
-stitching, the corpus renderer and verifier training on one CUDA card.
+stitching, the corpus renderer, verifier training and monocular depth on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -130,6 +131,26 @@ Phases:
      of one streamed batch's 1,024 decodes and resizes, the device corpus's
      gather ms, eval tuples/s, peak device memory, and the step's model
      FLOPs (from the layer shapes) as a share of the dense bf16 peak.
+ 10. monocular depth, pano JPEG -> depth net on the card -> u16 mm PNG
+     cache -> the corpus renderer: (a) `cli/batch_hohonet_inference.py`
+     with a seeded HoHoNet `.pth` (512x1024, float32, no TF32) over phase
+     8's floor 0 (its 1024x2048 JPEG panos) into a fresh depth root: one
+     PNG a pano; two panos card against CPU (within 1e-4 m, the u16 maps at
+     most 1 mm apart on at most 0.1% of the pixels); the whole CLI's
+     panos/s, one forward's device ms at batch 1, its model FLOPs against
+     the float32 peak, peak memory; (b) PanoDepthNet: two small-width steps
+     (ResNet-18, embed 64, 1 block, 64x128) card against CPU from one
+     state, step 1 in float32 (loss within 1e-5 relative, gradients within
+     2e-2 of each tensor's max, running statistics within 1e-5), step 2 in
+     float64 from the CPU's state (1e-9, 1e-8, 1e-9); `cli/train_depth.py
+     --synthetic_rgb` at full width (ResNet-50, embed 512, 4 blocks,
+     512x1024, bf16, batch 4) for 4 steps on phase 6's floors 0-2 with
+     `evaluate_depth` on floor 3; 10 steps on one fixed batch at full width
+     (the loss must fall), the train step's device ms, images/s, FLOP share
+     and peak memory; a checkpoint that reloads to the saved model's depth
+     bit for bit; B1-B3 launch 0 times in (a) and (b); (c) `render_pairs`,
+     direct arm, on 8 pairs of floor 0 reading (a)'s depth root: one B1 and
+     one B2 a batch and surface, and its files.
 
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -185,6 +206,19 @@ TRAIN_EPOCHS = 2
 FIXED_BATCH = 32
 FIXED_BATCH_STEPS = 10
 FIXED_BATCH_MAX_ITER = 50
+# Phase 10: monocular depth. HoHoNet over phase 8's floor 0 (seeded weights),
+# two panos card against CPU; PanoDepthNet trained by the CLI for a few steps
+# at batch 4 on phase 6's floors (the last one held out), ten steps on one
+# fixed batch; the corpus renderer's direct arm on 8 pairs of HoHoNet's depth.
+DEPTH_SEED = 0
+DEPTH_CHECK_PANOS = 2
+DEPTH_TRAIN_BATCH = 4
+DEPTH_CLI_STEPS = 4
+DEPTH_FIXED_STEPS = 10
+DEPTH_RENDER_PAIRS = 8
+# Sleep ahead of a timed depth forward (about 60 ms): the host enqueues a
+# HoHoNet forward's ~600 kernels behind it.
+DEPTH_SLEEP_CYCLES = 10 * SLEEP_CYCLES
 # Dense bf16 tensor-core peak of an H100 SXM (NVIDIA data sheet) at 700 W.
 BF16_FLOPS_PER_S = 989e12
 # Floors of phases 6 and 7: the first 4 of Stage A's 8 (cut from 8 when
@@ -516,8 +550,12 @@ def run(dev) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         report["training"] = training_phase(dev, Path(tmp) / "corpus" / "warp_card", Path(tmp) / "training")
+        report["depth"] = depth_phase(dev, Path(tmp))
     for name, row in report["kernels"].items():
         row["launches_corpus"] = {arm: report["corpus"][f"{arm}_card"]["launches"][name] for arm in ("warp", "direct")}
+        row["launches_depth"] = {"hohonet": report["depth"]["hohonet"]["launches"][name],
+                                 "depth_net": report["depth"]["depth_net"]["launches"][name],
+                                 "render": report["depth"]["render"]["launches"][name]}
     return report
 
 
@@ -1776,6 +1814,274 @@ def training_phase(dev, corpus: Path, root: Path) -> dict:
     return out
 
 
+def hohonet_flops(model, rgb) -> float:
+    """Multiply-adds x 2 of one HoHoNet forward on `rgb`: every Conv2d and
+    Linear module from its output shape (forward hooks), plus the products
+    taken from weights directly: the packed q/k/v projection, the scores and
+    the context, the height compression's and the head's 1x1 convs, and the
+    inverse DCT."""
+    from salve_tpu_torch.models import hohonet as th
+
+    b = rgb.shape[0]
+    w = model.input_hw[1] // th.WIDTH_DOWN
+    e, k, h = th.EMB_DIM, th.N_DCT_COMPONENTS, model.input_hw[0]
+    extra = b * (w * e * 3 * e + 2 * w * w * e + w * model.decode.proj.in_channels * e + w * e * k + w * k * h)
+    return count_model_flops(model, rgb) + 2.0 * extra
+
+
+def depth_small_step_check(dev, zind: Path) -> dict:
+    """Two depth train steps at small width (ResNet-18, embed 64, 1 block,
+    64x128, batch 2), the card against the CPU from one state (phase 10).
+    Step 1 in float32 from Flax-style weights; step 2 in float64 from the
+    CPU's state after step 1 (in float32 some early trunk gradients are sums
+    with heavy cancellation, a few 1e-3 of a tensor's max apart between two
+    float32 runs; tests/test_torch_depth_net.py)."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch.training import depth as depth_train
+
+    small = dict(num_layers=18, embed_dim=64, num_blocks=1, input_hw=(64, 128), compute_dtype="float32")
+    batch = next(depth_train.iter_layout_depth_batches(str(zind), ["0001"], 2, seed=0, synthetic_rgb=True,
+                                                       hw=small["input_hw"]))
+    step = depth_train.make_depth_train_step()
+    devices = {"cuda": dev, "cpu": torch.device("cpu")}
+    out = {k: [] for k in devices}
+
+    def take(k, state):
+        state, loss = step(state, *batch)
+        names = [n for n, _ in state.model.named_parameters()]
+        out[k].append({"loss": float(loss), "grads": {n: p.grad.detach().cpu() for n, p in
+                                                      zip(names, state.model.parameters())},
+                       "stats": {n: v.detach().cpu() for n, v in state.model.state_dict().items() if "running" in n}})
+        return state
+
+    states = {k: depth_train.create_depth_train_state(torch.Generator().manual_seed(0), device=d, **small)
+              for k, d in devices.items()}
+    for k in devices:
+        states[k] = take(k, states[k])
+    after1 = states["cpu"].model.state_dict()
+    names = [n for n, _ in states["cpu"].model.named_parameters()]
+    opt1 = states["cpu"].optimizer.state_dict(names)
+    for k, d in devices.items():
+        model = depth_train.PanoDepthNet(**small).double().to(d)
+        model.load_state_dict(after1)
+        state = depth_train.DepthTrainState(model=model, optimizer=depth_train.make_depth_optimizer(model, 1e-4))
+        state.optimizer.load_state_dict(opt1, names)
+        take(k, state)
+    card, cpu = out["cuda"], out["cpu"]
+    # The key projection's bias has a gradient of 0 in exact arithmetic (the
+    # softmax over the keys ignores it): held apart, against the largest
+    # gradient, as rounding noise on both sides.
+    zero_by_math = [n for n in cpu[0]["grads"] if n.endswith("attn.key.bias")]
+
+    def grads_apart(c, g):
+        keep = [n for n in g if n not in zero_by_math]
+        return grad_rel_max({n: c[n] for n in keep}, {n: g[n] for n in keep})
+
+    def key_bias_noise(c, g):
+        gmax = max(float(v.abs().max()) for v in g.values())
+        return max(max(float(c[n].abs().max()), float(g[n].abs().max())) for n in zero_by_math) / gmax
+
+    row = {"loss_card": [s["loss"] for s in card], "loss_cpu": [s["loss"] for s in cpu],
+           "loss_rel_diff": [abs(c["loss"] - g["loss"]) / abs(g["loss"]) for c, g in zip(card, cpu)],
+           "grad_rel_max": [grads_apart(c["grads"], g["grads"]) for c, g in zip(card, cpu)],
+           "key_bias_noise": [key_bias_noise(c["grads"], g["grads"]) for c, g in zip(card, cpu)],
+           "zero_grad_tensors": [sum(not bool(g.any()) for g in s["grads"].values()) for s in cpu],
+           "n_grad_tensors": len(cpu[0]["grads"]),
+           "running_stats_diff": [max(float((c["stats"][n] - v).abs().max()) for n, v in g["stats"].items())
+                                  for c, g in zip(card, cpu)]}
+    log(f"phase 10: small-width depth step (ResNet-18, embed 64, 1 block, 64x128, batch 2), card vs CPU: step 1 "
+        f"(float32) loss {row['loss_card'][0]:.7f} / {row['loss_cpu'][0]:.7f} (relative diff "
+        f"{row['loss_rel_diff'][0]:.2e}), largest gradient diff {row['grad_rel_max'][0]:.2e} of its tensor's max "
+        f"({row['zero_grad_tensors'][0]} of {row['n_grad_tensors']} tensors 0 on both sides), running stats "
+        f"{row['running_stats_diff'][0]:.2e}; step 2 (float64, from the CPU's state) loss {row['loss_rel_diff'][1]:.2e}, "
+        f"gradients {row['grad_rel_max'][1]:.2e} ({row['zero_grad_tensors'][1]} zero), running stats "
+        f"{row['running_stats_diff'][1]:.2e}; the key bias's gradient (0 in exact arithmetic) "
+        f"{row['key_bias_noise'][0]:.1e} / {row['key_bias_noise'][1]:.1e} of the largest")
+    if (row["loss_rel_diff"][0] > 1e-5 or row["grad_rel_max"][0] > 2e-2 or row["running_stats_diff"][0] > 1e-5
+            or row["loss_rel_diff"][1] > 1e-9 or row["grad_rel_max"][1] > 1e-8 or row["running_stats_diff"][1] > 1e-9
+            or max(row["key_bias_noise"]) > 1e-4):
+        raise AssertionError(f"phase 10: the card's depth train steps disagree with the CPU's: {row}")
+    return row
+
+
+def depth_phase(dev, root: Path) -> dict:
+    """Phase 10: monocular depth on phase 6's floors and phase 8's panos
+    (module docstring)."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.cli import batch_hohonet_inference, train_depth
+    from salve_tpu_torch.models import depth_net
+    from salve_tpu_torch.models import hohonet as th
+    from salve_tpu_torch.native import png
+    from salve_tpu_torch.rendering import dataset_renderer as dr
+    from salve_tpu_torch.rendering.bev_pair import load_pano_rgb
+    from salve_tpu_torch.training import depth as depth_train
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {}
+    bid = CORPUS_FLOORS[0]
+    zind = root / "zind"
+    panos = sorted((zind / bid / "panos").glob("*.jpg"))
+
+    # (a) HoHoNet at 512x1024, float32, seeded weights in the checkpoint's layout.
+    ckpt = root / "hohonet" / "ep60_seeded.pth"
+    ckpt.parent.mkdir(parents=True)
+    torch.save({"state_dict": th.seeded_hohonet(th.INPUT_HW, seed=DEPTH_SEED).state_dict()}, ckpt)
+    depth_root = root / "depth_hohonet"
+    device_mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ready = batch_hohonet_inference.main(["--raw_dataset_dir", str(zind), "--depth_save_root", str(depth_root),
+                                          "--building_id", bid, "--model_ckpt", str(ckpt), "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    launches_a = device_mod.launch_counts()
+    pngs = sorted((depth_root / bid).glob("*.depth.png"))
+    if ready != (len(panos), 0) or [p.name.replace(".depth.png", "") for p in pngs] != [p.stem for p in panos]:
+        raise AssertionError(f"phase 10: batch_hohonet_inference returned {ready}, wrote {len(pngs)} PNGs for "
+                             f"{len(panos)} panos")
+    hoho = {"panos": len(panos), "cli_s": secs, "panos_per_s": len(panos) / secs, "launches": launches_a}
+    log(f"phase 10: {card}: batch_hohonet_inference (HoHoNet, 512x1024, float32, seeded .pth) over floor {bid}'s "
+        f"{len(panos)} 1024x2048 JPEG panos in {secs:.2f} s, {hoho['panos_per_s']:.2f} panos/s (read, forward, "
+        f"u16 PNG write); one PNG a pano; launches of B1-B3 {launches_a}")
+
+    # Card against CPU on two panos: metres from the providers, mm from the PNGs.
+    prov_cpu = th.load_hohonet_depth_provider(str(ckpt), device="cpu")
+    prov_card = th.load_hohonet_depth_provider(str(ckpt), device=dev)
+    worst_m, off, n, worst_mm = 0.0, 0, 0, 0
+    for f, p in list(zip(panos, pngs))[:DEPTH_CHECK_PANOS]:
+        rgb = load_pano_rgb(str(f))
+        d_cpu, d_card = prov_cpu(rgb), prov_card(rgb)
+        worst_m = max(worst_m, float(np.abs(d_card - d_cpu).max()))
+        mm_cpu = np.clip(np.round(d_cpu * 1000.0), 0, 65535).astype(np.int64)
+        mm_card = png.read_png(p).astype(np.int64)
+        worst_mm = max(worst_mm, int(np.abs(mm_card - mm_cpu).max()))
+        off += int((mm_card != mm_cpu).sum())
+        n += mm_cpu.size
+    hoho.update(card_vs_cpu_max_m=worst_m, card_vs_cpu_max_mm=worst_mm, card_vs_cpu_off_share=off / n,
+                depth_range_m=[float(d_cpu.min()), float(d_cpu.max())])
+    log(f"phase 10: HoHoNet card vs CPU on {DEPTH_CHECK_PANOS} panos: max |diff| {worst_m:.3e} m; u16 maps at most "
+        f"{worst_mm} mm apart, on {100 * off / n:.4f}% of the pixels (depth {d_cpu.min():.3f}-{d_cpu.max():.3f} m)")
+    if worst_m > 1e-4 or worst_mm > 1 or off / n > 1e-3:
+        raise AssertionError(f"phase 10: the card's HoHoNet depth disagrees with the CPU's: {hoho}")
+    del prov_cpu
+
+    model = th.HoHoNetDepth().to(dev).eval()
+    model.load_state_dict(th.load_hohonet_state_dict(str(ckpt)))
+    x = torch.as_tensor(load_pano_rgb(str(panos[0])), dtype=torch.float32, device=dev)[None]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        hoho["forward_ms"] = time_ms(lambda: model(x), rounds=5, per_round=5, warmup=2,
+                                     sleep_cycles=DEPTH_SLEEP_CYCLES)
+    hoho["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    hoho["forward_flops"] = hohonet_flops(model, x)
+    hoho["fp32_peak_share"] = hoho["forward_flops"] / (hoho["forward_ms"] / 1e3) / FP32_OPS_PER_S
+    log(f"phase 10: {card}: HoHoNet forward at batch 1 (512x1024, float32, no TF32) {hoho['forward_ms']:.3f} ms "
+        f"device (CUDA events, median of 5 rounds of 5 behind a sleep kernel); {hoho['forward_flops'] / 1e9:.2f} G model FLOPs, "
+        f"{100 * hoho['fp32_peak_share']:.2f}% of the {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s float32 peak; peak "
+        f"device memory {hoho['peak_memory_gb']:.3f} GB")
+    out["hohonet"] = hoho
+    del model, prov_card, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) PanoDepthNet at full width (ResNet-50, embed 512, 4 blocks, 512x1024, bf16).
+    device_mod.reset_launch_counts()
+    out["small"] = depth_small_step_check(dev, zind)
+    train_bids = [f"{s:04d}" for s in range(STAGE_D_FLOORS - 1)]
+    eval_bid = f"{STAGE_D_FLOORS - 1:04d}"
+    ckpt_cli = root / "depth_net" / "depth.pt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_depth.main(["--raw_dataset_dir", str(zind), "--model_save_fpath", str(ckpt_cli), "--synthetic_rgb",
+                            "--batch_size", str(DEPTH_TRAIN_BATCH), "--num_epochs", "1", "--max_steps",
+                            str(DEPTH_CLI_STEPS), "--train_buildings", ",".join(train_bids),
+                            "--eval_buildings", eval_bid, "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    if (res["train_steps"] != DEPTH_CLI_STEPS or not np.all(np.isfinite(res["losses"])) or not ckpt_cli.is_file()
+            or not (root / "depth_net" / "depth.pt.eval.json").is_file()):
+        raise AssertionError(f"phase 10: train_depth: {res}")
+    net = {"cli_s": cli_s, "cli_losses": res["losses"], "eval": res["eval"]}
+    log(f"phase 10: train_depth --synthetic_rgb (ResNet-50, embed 512, 4 blocks, 512x1024, bf16, batch "
+        f"{DEPTH_TRAIN_BATCH}) on floors {train_bids}: {DEPTH_CLI_STEPS} steps, losses "
+        f"{[round(v, 5) for v in res['losses']]}, in {cli_s:.1f} s with the host's raycasts and the evaluation; "
+        f"evaluate_depth on floor {eval_bid} (seeded start, {DEPTH_CLI_STEPS} steps: no target): "
+        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in res["eval"].items()))
+
+    # A fixed batch at full width: the loss falls, the step's time, the checkpoint reload.
+    batch = next(depth_train.iter_layout_depth_batches(str(zind), [eval_bid], DEPTH_TRAIN_BATCH, seed=5,
+                                                       synthetic_rgb=True))
+    state = depth_train.create_depth_train_state(torch.Generator().manual_seed(1), device=dev)
+    step = depth_train.make_depth_train_step()
+    batch_dev = [torch.as_tensor(a, device=dev) for a in batch]
+    losses = []
+    for _ in range(DEPTH_FIXED_STEPS):
+        state, loss = step(state, *batch_dev)
+        losses.append(float(loss))
+    net["fixed_batch_losses"] = losses
+    log(f"phase 10: {DEPTH_FIXED_STEPS} steps on one fixed batch of {DEPTH_TRAIN_BATCH} at full width: losses "
+        f"{[round(v, 5) for v in losses]}")
+    if not losses[-1] < losses[0] or not np.all(np.isfinite(losses)):
+        raise AssertionError("phase 10: the depth loss did not fall on a fixed batch")
+    torch.cuda.reset_peak_memory_stats(dev)
+    net["train_step_ms"] = time_ms(lambda: step(state, *batch_dev), rounds=5, per_round=2, warmup=1, prefill=False)
+    net["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    net["images_per_s"] = DEPTH_TRAIN_BATCH / (net["train_step_ms"] / 1e3)
+    net["step_flops"] = 3.0 * count_model_flops(state.model, batch_dev[0])
+    net["bf16_peak_share"] = net["step_flops"] / (net["train_step_ms"] / 1e3) / BF16_FLOPS_PER_S
+    with torch.no_grad():
+        net["forward_ms"] = time_ms(lambda: state.model.eval()(batch_dev[0][:1]), rounds=5, per_round=5, warmup=2,
+                                    sleep_cycles=DEPTH_SLEEP_CYCLES)
+    log(f"phase 10: {card}: PanoDepthNet train step at batch {DEPTH_TRAIN_BATCH} (ResNet-50, 512x1024, bf16) "
+        f"{net['train_step_ms']:.2f} ms device (CUDA events, median of 5 rounds of 2), {net['images_per_s']:.1f} "
+        f"images/s; step model FLOPs {net['step_flops'] / 1e12:.3f} T (convs and dense layers, x 3 for forward + "
+        f"backward), {100 * net['bf16_peak_share']:.2f}% of the bf16 peak; peak device memory "
+        f"{net['peak_memory_gb']:.2f} GB; eval forward at batch 1 {net['forward_ms']:.2f} ms (behind a sleep kernel)")
+    ckpt_fixed = depth_train.save_depth_checkpoint(str(root / "depth_net" / "fixed.pt"), state)
+    want = depth_net.make_depth_provider(state.model)(batch[0][0])
+    got = depth_net.load_depth_provider(ckpt_fixed, device=dev)(batch[0][0])
+    if not np.array_equal(got, want):
+        raise AssertionError("phase 10: the reloaded depth checkpoint's output differs from the saved model's")
+    log(f"phase 10: checkpoint {Path(ckpt_fixed).name} ({Path(ckpt_fixed).stat().st_size / 1e6:.1f} MB) reloads "
+        f"to the saved model's depth bit for bit")
+    net["launches"] = device_mod.launch_counts()
+    log(f"phase 10: launches of B1-B3 over the depth nets' training (none on this path): {net['launches']}")
+    if any(net["launches"].values()) or any(launches_a.values()):
+        raise AssertionError(f"phase 10: the depth nets launched {launches_a} / {net['launches']}")
+    out["depth_net"] = net
+    del state, batch_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The corpus renderer reads HoHoNet's depth: direct arm, 8 pairs of floor 0.
+    kept = subset_hypotheses(root / "hyp", root / "hyp_depth", bid, DEPTH_RENDER_PAIRS)
+    dst = root / "corpus" / "depth_direct"
+    device_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    n_items = dr.render_pairs(depth_save_root=str(depth_root), bev_save_root=str(dst), raw_dataset_dir=str(zind),
+                              hypotheses_save_root=str(root / "hyp_depth"), layout_save_root=None,
+                              render_modalities=["rgb_texture"], building_id=bid, use_warp=False, device=dev)
+    render_s = time.perf_counter() - t0
+    launches_c = device_mod.launch_counts()
+    n_batches = -(-len(kept) // dr.DEFAULT_BATCH_SIZE)
+    files = sorted(p for p in dst.rglob("*.jpg"))
+    expect = {"splat": 2 * n_batches, "fill": 2 * n_batches, "warp": 0}
+    out["render"] = {"pairs": len(kept), "items": n_items, "files": len(files), "seconds": render_s,
+                     "launches": launches_c}
+    log(f"phase 10: render_pairs (direct arm) on {len(kept)} pairs of floor {bid} from HoHoNet's depth: "
+        f"{n_items} pair-surface items, {len(files)} JPEGs in {render_s:.2f} s; launches {launches_c}")
+    if launches_c != expect or n_items != 2 * len(kept) or len(files) != 4 * len(kept):
+        raise AssertionError(f"phase 10: the renderer on HoHoNet's depth: launches {launches_c} (expected {expect}), "
+                             f"{n_items} items, {len(files)} files")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 10: {out['seconds']:.1f} s")
+    return out
+
+
 def direct_batch_clouds(rng, depths, rgbs, n: int, render_cfg):
     """The floor clouds of a direct-mode batch: n random hypotheses' pano 1
     moved into the partner's frame (rendering/bev_pair.py:render_transformed_batched)."""
@@ -2109,9 +2415,14 @@ def main() -> int:
     log(f"throughput: training {tr['train_tuples_per_s']:.1f} tuples/s a train step at batch 256 "
         f"({tr['train_step_ms']:.2f} ms), eval {tr['eval_tuples_per_s']:.1f} tuples/s, "
         f"{100 * tr['bf16_peak_share']:.2f}% of the bf16 peak")
+    dp = report["depth"]
+    log(f"throughput: depth, HoHoNet batch_hohonet_inference {dp['hohonet']['panos_per_s']:.2f} panos/s "
+        f"(forward {dp['hohonet']['forward_ms']:.3f} ms); PanoDepthNet train step "
+        f"{dp['depth_net']['images_per_s']:.1f} images/s at batch {DEPTH_TRAIN_BATCH} "
+        f"({dp['depth_net']['train_step_ms']:.2f} ms)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
-            "launches_corpus", "shape",
+            "launches_corpus", "launches_depth", "shape",
             "extra")
     rows = [{kk: row.get(kk) for kk in keys} for row in report["kernels"].values()]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,14 +1,31 @@
-"""Depth-map cache with the reference's on-disk contract (the cache-hit path
-of salve_tpu/depth/cache.py).
+"""Depth-map cache with the reference's on-disk contract (port of
+salve_tpu/depth/cache.py).
 
-Depth maps are u16 PNGs in millimeters at (512, 1024), cached per building.
-The depth model itself comes with the depth slice of the port; until then a
-cache miss raises.
+Depth maps are u16 PNGs in millimeters at (512, 1024), cached per building
+under {depth_save_root}/{building_id}/{pano_stem}.depth.png. A cache hit
+returns the path; a miss runs the registered depth producer (a HoHoNet or
+PanoDepthNet provider from `models/`) on the resized pano and writes its
+PNG through the port's own encoder (native/png.py).
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
+from typing import Callable, Optional
+
+import numpy as np
+
+# Registered producer: fn(rgb (512,1024,3) float [0,1]) -> depth_m (512,1024) float.
+_DEPTH_MODEL: Optional[Callable[[np.ndarray], np.ndarray]] = None
+
+PANO_H, PANO_W = 512, 1024
+
+
+def register_depth_model(fn: Optional[Callable[[np.ndarray], np.ndarray]]) -> None:
+    """Register the depth producer used on cache misses (None: none)."""
+    global _DEPTH_MODEL
+    _DEPTH_MODEL = fn
 
 
 def depth_fpath_for_pano(depth_save_root: str, building_id: str, img_fpath: str) -> str:
@@ -17,11 +34,32 @@ def depth_fpath_for_pano(depth_save_root: str, building_id: str, img_fpath: str)
 
 
 def infer_depth_if_nonexistent(depth_save_root: str, building_id: str, img_fpath: str) -> str:
-    """Return the cached depth map's path; raise FileNotFoundError on a miss."""
+    """Ensure a cached depth map exists for this pano; return its path.
+
+    On a miss, runs the registered producer on the pano (read and resized
+    to 512x1024 by `load_pano_rgb`) and writes its depth as a u16 mm PNG:
+    round(depth_m * 1000) clipped to [0, 65535] on the host. Raises
+    FileNotFoundError if no producer is registered and no cache exists.
+    """
     depth_fpath = depth_fpath_for_pano(depth_save_root, building_id, img_fpath)
     if Path(depth_fpath).exists():
         return depth_fpath
-    raise FileNotFoundError(
-        f"No cached depth map at {depth_fpath}. Pre-compute depth PNGs "
-        "(u16 mm, 512x1024); the port has no depth model yet."
-    )
+
+    if _DEPTH_MODEL is None:
+        raise FileNotFoundError(
+            f"No cached depth map at {depth_fpath} and no depth model registered. "
+            "Pre-compute depth PNGs (u16 mm, 512x1024) or call "
+            "salve_tpu_torch.depth.register_depth_model()."
+        )
+
+    from salve_tpu_torch.native import png
+    from salve_tpu_torch.rendering.bev_pair import load_pano_rgb
+
+    rgb = load_pano_rgb(img_fpath)
+    depth_m = np.asarray(_DEPTH_MODEL(rgb))
+    if depth_m.shape != (PANO_H, PANO_W):
+        raise ValueError(f"Depth model returned shape {depth_m.shape}")
+    depth_mm = np.clip(np.round(depth_m * 1000.0), 0, 65535).astype(np.uint16)
+    os.makedirs(os.path.dirname(depth_fpath), exist_ok=True)
+    Path(depth_fpath).write_bytes(png.encode_png(depth_mm))
+    return depth_fpath

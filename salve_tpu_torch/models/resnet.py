@@ -132,8 +132,25 @@ class ResNetTrunk(nn.Module):
                 cin = planes * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
 
+    def feature_map(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 64, H/2, W/2) stem output -> (B, feature_dim, H/32, W/32)."""
+        x = self.maxpool(self.relu(self.bn1(x)))
+        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, 64, H/2, W/2) stem output -> (B, feature_dim) pooled features."""
-        x = self.maxpool(self.relu(self.bn1(x)))
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return x.mean(dim=(2, 3))
+        return self.feature_map(x).mean(dim=(2, 3))
+
+
+class ResNetFeatures(ResNetTrunk):
+    """A ResNet trunk with its own 3-channel stem (`conv1`, 7x7 stride 2)
+    and no mean pool: (B, 3, H, W) -> (B, feature_dim, H/32, W/32). The
+    depth net's trunk (salve_tpu/models/depth_net.py:_Trunk, whose stem is
+    `conv_init` / `bn_init`)."""
+
+    def __init__(self, num_layers: int) -> None:
+        super().__init__(num_layers)
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.feature_map(self.conv1(x))

@@ -55,12 +55,15 @@ def make_poly_schedule(cfg: TrainingConfig, max_iter: int) -> Schedule:
 class OptaxAdam:
     """`optax.chain(add_decayed_weights(wd), adam(lr_schedule))` over `params`.
 
-    Per parameter p with gradient g, in optax's order and float32:
+    Per parameter p with gradient g, in optax's order:
         g  = g + wd * p
         mu = (1 - b1) * g + b1 * mu;  nu = (1 - b2) * g**2 + b2 * nu
         count += 1
         u  = (mu / (1 - b1**count)) / (sqrt(nu / (1 - b2**count)) + eps)
         p  = p + (-lr(schedule_count)) * u;  schedule_count += 1
+    The scalars (bias corrections, rate) are in the parameters' float type,
+    as optax computes them in JAX's: float32, or float64 for a model cast
+    with `.double()` (JAX with x64 on).
     `torch.optim.Adam` computes the same quantities in another order (a
     lerp for mu, the bias corrections folded into the step size and the
     denominator), so it is written out here.
@@ -87,14 +90,15 @@ class OptaxAdam:
         torch._foreach_mul_(self.nu, ADAM_B2)
         torch._foreach_add_(self.nu, g2)
         self.count += 1
-        bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** np.float32(self.count))
-        bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** np.float32(self.count))
+        ft = np.float64 if self.params[0].dtype == torch.float64 else np.float32
+        bc1 = float(ft(1.0) - ft(ADAM_B1) ** ft(self.count))
+        bc2 = float(ft(1.0) - ft(ADAM_B2) ** ft(self.count))
         denom = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, ADAM_EPS)
         u = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(u, denom)
-        torch._foreach_mul_(u, -float(np.float32(self.schedule(self.schedule_count))))
+        torch._foreach_mul_(u, -float(ft(self.schedule(self.schedule_count))))
         self.schedule_count += 1
         torch._foreach_add_(self.params, u)
 

@@ -69,7 +69,8 @@ def test_clis_start_without_packages_the_card_lacks():
         "importlib.import_module(sys.argv[1]).main(['--help'])\n"
     )
     for cli in ("run_sfm", "export_alignment_hypotheses", "test_fused", "stitch_floor_plan",
-                "stitch_floor_plan_clusters", "render_dataset_bev", "train", "test"):
+                "stitch_floor_plan_clusters", "render_dataset_bev", "train", "test", "train_depth",
+                "batch_hohonet_inference"):
         out = subprocess.run([sys.executable, "-c", script, f"salve_tpu_torch.cli.{cli}"], cwd=REPO,
                              capture_output=True, text=True, timeout=300)
         assert out.returncode == 0, out.stderr
@@ -252,6 +253,31 @@ def test_training_entry_points_raise_without_a_card(no_cuda, tmp_path):
     assert not (tmp_path / "m").exists() and not (tmp_path / "p").exists()
     with pytest.raises(RuntimeError, match="absent"):
         train(cfg, device="cpu")
+
+
+def test_depth_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    """The depth providers, the depth train state and both depth CLIs take
+    the card by default and raise without one, before they read any file."""
+    from salve_tpu_torch.cli import batch_hohonet_inference, train_depth
+    from salve_tpu_torch.models.depth_net import load_depth_provider
+    from salve_tpu_torch.models.hohonet import load_hohonet_depth_provider
+    from salve_tpu_torch.training.depth import create_depth_train_state
+
+    absent = str(tmp_path / "absent.pth")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_hohonet_depth_provider(absent)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_depth_provider(absent)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_depth_train_state(torch.Generator().manual_seed(0), num_layers=18)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_depth.main(["--raw_dataset_dir", str(tmp_path), "--model_save_fpath", str(tmp_path / "m" / "d.pt")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch_hohonet_inference.main(["--raw_dataset_dir", str(tmp_path), "--depth_save_root", str(tmp_path / "d"),
+                                      "--building_id", "0000"])
+    assert not (tmp_path / "m").exists() and not (tmp_path / "d").exists()
+    with pytest.raises(FileNotFoundError):
+        load_hohonet_depth_provider(absent, device="cpu")
 
 
 def test_native_readers_build_apart_from_the_kernels():
