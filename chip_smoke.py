@@ -1,6 +1,6 @@
 """Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A, Stage D,
-stitching, the corpus renderer, verifier training and monocular depth on
-one CUDA card.
+stitching, the corpus renderer, verifier training, monocular depth and the
+end-to-end accuracy run on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -151,6 +151,29 @@ Phases:
      bit for bit; B1-B3 launch 0 times in (a) and (b); (c) `render_pairs`,
      direct arm, on 8 pairs of floor 0 reading (a)'s depth root: one B1 and
      one B2 a batch and surface, and its files.
+ 11. the end-to-end accuracy run and the rest of the device code: (a)
+     `cli/end_to_end_eval.py` at the harness's own defaults (ResNet-18,
+     resize 128 / crop 112, batch 16, RGB ceiling + floor, pose2_slam, GT
+     ray-cast depth, the warp corpus, `--calibrate_on_val`) on procedural
+     stand-ins for its two fixture buildings (0000 train, 1210 eval, written
+     by `write_procedural_buildings` at base seed 7), cut to 2 epochs (the
+     harness runs 8) and 1 procedural val building: `end_to_end_eval.json`
+     with salve_tpu's keys, a finite IoU and % localized for every held-out
+     floor, B1 and B2 4 launches a floor and B3 none; the card's checkpoint
+     evaluated on the CPU (probabilities within 1e-3, labels equal where the
+     CPU's is clear of 0.5 by 1e-3) and `--stage_d_only` on the CPU from the
+     card's predictions (equal rows, pose errors within 1e-6); the summary's
+     rows, `timings_s` and the materializer's seconds a pano; (a') the
+     materializer's provider branch over building 1210's panos with phase
+     10's PanoDepthNet checkpoint in float32, two panos card against CPU (at
+     most 1 mm apart on at most 0.1% of the pixels); (b) the semantic render
+     of phase 3's 4 panos at 501^2 (card equals CPU, one B1, no B2),
+     `choose_elevated_repeated_vals` on one pano's cloud (equal masks, one
+     B1), `interp_dense_grid_from_sparse` (both `is_semantics`) and
+     `remove_hallucinated_content` (card equals CPU); (c)
+     `cli/register_depth_maps_icp.py` on two panos of one room of building
+     1210, card against CPU within 1e-4 (rotation, Frobenius) and 1e-4 m,
+     each scale's loop ms (CUDA events) and the CLI's seconds.
 
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -162,6 +185,7 @@ import ctypes
 import gc
 import hashlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -231,6 +255,25 @@ STAGE_D_WDO_TYPES = ["door", "window", "opening"]
 # takes to enqueue the batched product's ~110 small kernels, so the events
 # bracket device time only.
 STAGE_A_SLEEP_CYCLES = 10 * SLEEP_CYCLES
+# Phase 11: the end-to-end harness at its own defaults, on procedural
+# stand-ins for its two fixture buildings (train 0000, eval 1210) written at
+# base seed 7, one procedural val building, 2 epochs (the harness runs 8).
+E2E_BUILDINGS = ("0000", "1210")
+E2E_BASE_SEED = 7
+E2E_VAL_BUILDINGS = 1
+E2E_EPOCHS = 2
+E2E_PROVIDER_CHECK_PANOS = 2
+# The keys of salve_tpu's end_to_end_eval.json (salve_tpu/cli/end_to_end_eval.py:480-521).
+E2E_SUMMARY_KEYS = sorted([
+    "train_building", "eval_building", "eval_procedural_buildings", "verifier", "depth", "reconstruction",
+    "reconstruction_summary", "method", "rescue_clusters", "glc", "rotfix", "confidence_threshold", "calibration",
+    "warp_corpus", "timings_s", "total_wallclock_s"])
+E2E_VERIFIER_KEYS = sorted([
+    "precision", "recall", "mAcc", "per_building", "ckpt", "train_mAcc_last", "val_mAcc_best", "train_mAcc_history",
+    "num_layers", "num_epochs", "modalities"])
+E2E_REPORT_KEYS = sorted([
+    "building_id", "floor_id", "avg_abs_rot_err_deg", "avg_abs_trans_err", "percent_panos_localized",
+    "floorplan_iou", "percent_in_top2_ccs", "percent_in_top3_ccs"])
 
 REPLACES = {
     "splat": "salve_tpu/ops/pallas_splat.py:77",
@@ -551,11 +594,15 @@ def run(dev) -> dict:
         torch.cuda.empty_cache()
         report["training"] = training_phase(dev, Path(tmp) / "corpus" / "warp_card", Path(tmp) / "training")
         report["depth"] = depth_phase(dev, Path(tmp))
+        report["e2e"] = e2e_phase(dev, Path(tmp), Path(tmp) / "depth_net" / "fixed.pt")
     for name, row in report["kernels"].items():
         row["launches_corpus"] = {arm: report["corpus"][f"{arm}_card"]["launches"][name] for arm in ("warp", "direct")}
         row["launches_depth"] = {"hohonet": report["depth"]["hohonet"]["launches"][name],
                                  "depth_net": report["depth"]["depth_net"]["launches"][name],
                                  "render": report["depth"]["render"]["launches"][name]}
+        row["launches_e2e"] = {"harness": report["e2e"]["harness"]["launches"][name],
+                               "semantic_render": report["e2e"]["semantics"]["render_launches"][name],
+                               "zorder": report["e2e"]["semantics"]["zorder"]["launches"][name]}
     return report
 
 
@@ -2082,6 +2129,278 @@ def depth_phase(dev, root: Path) -> dict:
     return out
 
 
+def e2e_phase(dev, root: Path, depth_ckpt: Path) -> dict:
+    """Phase 11: the end-to-end accuracy run, the depth-provider branch of
+    the materializer, semantic renders and the helpers, and the ICP
+    baseline (module docstring)."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.cli import end_to_end_eval as e2e
+    from salve_tpu_torch.common.posegraph2d import compute_available_floors_for_building
+    from salve_tpu_torch.dataset.procedural import write_procedural_buildings
+    from salve_tpu_torch.training import loop as train_loop
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {}
+
+    # (a) The harness at its own defaults on procedural stand-ins for the fixture buildings.
+    src, run_dir = root / "e2e_src", root / "e2e"
+    write_procedural_buildings(str(src), list(E2E_BUILDINGS), base_seed=E2E_BASE_SEED)
+    argv = ["--src_zind_dir", str(src), "--output_dir", str(run_dir), "--procedural_val_buildings",
+            str(E2E_VAL_BUILDINGS), "--num_epochs", str(E2E_EPOCHS), "--calibrate_on_val"]
+    device_mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = e2e.main(argv + ["--device", dev.type])
+    secs = time.perf_counter() - t0
+    launches = device_mod.launch_counts()
+    raw = run_dir / "zind"
+    floors = {bid: compute_available_floors_for_building(bid, str(raw))
+              for bid in sorted(p.name for p in raw.iterdir())}
+    n_floors = sum(len(f) for f in floors.values())
+    panos = {bid: len(list((raw / bid / "panos").glob("*.jpg"))) for bid in floors}
+    if sorted(summary) != E2E_SUMMARY_KEYS or sorted(summary["verifier"]) != E2E_VERIFIER_KEYS:
+        raise AssertionError(f"phase 11: the summary's keys {sorted(summary)} / {sorted(summary['verifier'])} are not "
+                             "salve_tpu's")
+    if summary != json.loads((run_dir / "end_to_end_eval.json").read_text()):
+        raise AssertionError("phase 11: end_to_end_eval.json differs from the summary the harness returned")
+    rows = summary["reconstruction"]
+    eval_floors = floors[E2E_BUILDINGS[1]]
+    if ([(r["building_id"], r["floor_id"]) for r in rows] != [(E2E_BUILDINGS[1], f) for f in eval_floors]
+            or any(sorted(r) != E2E_REPORT_KEYS for r in rows)
+            or any(r["floorplan_iou"] is None or r["percent_panos_localized"] is None for r in rows)):
+        raise AssertionError(f"phase 11: the held-out floors' rows are not all finite: {rows}")
+    expect = {"splat": 4 * n_floors, "fill": 4 * n_floors, "warp": 0}
+    if launches != expect:
+        raise AssertionError(f"phase 11: the harness launched {launches}, expected {expect} (Stage B's warp arm: an "
+                             "identity and an extended render a surface and floor; no other stage launches B1-B3)")
+    materialize_s = {bid: summary["timings_s"][f"materialize_{bid}_s"] for bid in floors}
+    out["harness"] = {"seconds": secs, "launches": launches, "floors": n_floors, "panos": panos,
+                      "summary": summary,
+                      "materialize_s_per_pano": {bid: materialize_s[bid] / panos[bid] for bid in floors}}
+    v = summary["verifier"]
+    log(f"phase 11: {card}: end_to_end_eval ({' '.join(argv[4:])}; ResNet-{v['num_layers']}, resize 128 / crop 112, "
+        f"batch 16, pose2_slam, GT ray-cast depth, warp corpus) over buildings {panos} (panos) in {secs:.1f} s; "
+        f"launches {launches} over {n_floors} floors")
+    log(f"phase 11: verifier on the held-out building: precision {v['precision']:.4f}, recall {v['recall']:.4f}, "
+        f"mAcc {v['mAcc']:.4f}; train mAcc by epoch {[round(x, 4) for x in v['train_mAcc_history']]}, best val mAcc "
+        f"{v['val_mAcc_best']:.4f}; frozen threshold {summary['confidence_threshold']:.4f} (calibrated "
+        f"{summary['calibration']['frozen_threshold_calibrated']}, T {summary['calibration']['temperature']:.3f})")
+    for r in rows:
+        log("phase 11: reconstruction " + ", ".join(f"{k} {r[k]}" for k in E2E_REPORT_KEYS))
+    log("phase 11: timings_s " + json.dumps(summary["timings_s"]))
+    log("phase 11: materializer s a pano (host ray cast, JPEG and PNG encode): " + ", ".join(
+        f"{bid} {x:.3f}" for bid, x in out["harness"]["materialize_s_per_pano"].items()))
+
+    # Card against CPU: the card's checkpoint scored on the CPU, and Stage D on the CPU from the card's preds.
+    args = e2e.build_parser().parse_args(argv)
+    cfg = e2e.training_config(args, run_dir)
+    cpu_preds = root / "e2e_cpu_preds"
+    t0 = time.perf_counter()
+    train_loop.evaluate(cfg, v["ckpt"], "test", str(cpu_preds), device="cpu")
+    cpu_eval_s = time.perf_counter() - t0
+    worst, compared, flips = 0.0, 0, 0
+    files = sorted(p.name for p in (run_dir / "preds").glob("batch_*.json"))
+    if not files or files != sorted(p.name for p in cpu_preds.glob("batch_*.json")):
+        raise AssertionError(f"phase 11: batch files on the card {files}, on the CPU {sorted(cpu_preds.iterdir())}")
+    for name in files:
+        g, c = (json.loads((d / name).read_text()) for d in (run_dir / "preds", cpu_preds))
+        if g["fp0"] != c["fp0"] or g["y_true"] != c["y_true"]:
+            raise AssertionError(f"phase 11: {name}: the card's and the CPU's tuples differ")
+        p_card = np.where(np.array(g["y_hat"]) == 1, g["y_hat_probs"], 1 - np.array(g["y_hat_probs"]))
+        p_cpu = np.where(np.array(c["y_hat"]) == 1, c["y_hat_probs"], 1 - np.array(c["y_hat_probs"]))
+        worst = max(worst, float(np.abs(p_card - p_cpu).max()))
+        clear = np.abs(p_cpu - 0.5) > 1e-3
+        compared += int(clear.sum())
+        flips += int((np.array(g["y_hat"])[clear] != np.array(c["y_hat"])[clear]).sum())
+    log(f"phase 11: evaluate of the card's checkpoint on the CPU ({cpu_eval_s:.1f} s): class-1 probabilities at most "
+        f"{worst:.3e} apart; labels differ on {flips} of the {compared} tuples clear of 0.5 by 1e-3")
+    if worst > 1e-3 or flips:
+        raise AssertionError("phase 11: the card's verifier disagrees with the CPU's")
+    t0 = time.perf_counter()
+    stage_d = e2e.main(["--src_zind_dir", str(src), "--output_dir", str(run_dir), "--stage_d_only",
+                        "--confidence_threshold", repr(summary["confidence_threshold"]), "--device", "cpu"])
+    cpu_d_s = time.perf_counter() - t0
+    for g, c in zip(rows, stage_d["reconstruction"]):
+        same = all(g[k] == c[k] for k in ("building_id", "floor_id", "percent_panos_localized", "floorplan_iou",
+                                          "percent_in_top2_ccs", "percent_in_top3_ccs"))
+        for k in ("avg_abs_rot_err_deg", "avg_abs_trans_err"):
+            same &= (g[k] is None) == (c[k] is None) and (g[k] is None or abs(g[k] - c[k]) <= 1e-6)
+        if not same or len(rows) != len(stage_d["reconstruction"]):
+            raise AssertionError(f"phase 11: Stage D on the CPU from the card's predictions: {c}, card {g}")
+    out["cpu_check"] = {"eval_s": cpu_eval_s, "prob_max_diff": worst, "compared": compared, "stage_d_s": cpu_d_s}
+    log(f"phase 11: --stage_d_only on the CPU from the card's preds ({cpu_d_s:.1f} s): the same rows, pose errors "
+        "within 1e-6")
+
+    # (a') The materializer's provider branch: phase 10's PanoDepthNet, in float32, on the eval building's panos.
+    out["provider"] = provider_check(dev, root, src, raw, depth_ckpt)
+    # (b) Semantic renders, the z-order and interpolation helpers on phase 3's panos.
+    out["semantics"] = semantics_check(dev)
+    # (c) ICP between two panos of one room of the eval building.
+    out["icp"] = icp_check(dev, root, raw, run_dir / "depth")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 11: {out['seconds']:.1f} s")
+    return out
+
+
+def provider_check(dev, root: Path, src: Path, raw: Path, depth_ckpt: Path) -> dict:
+    """Phase 11 (a'): `materialize_synthetic_building` with a depth provider
+    reading the eval building's existing panos, card against CPU."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch.dataset.synthetic_zind import materialize_synthetic_building
+    from salve_tpu_torch.models.depth_net import load_depth_provider
+    from salve_tpu_torch.native import png
+
+    bid = E2E_BUILDINGS[1]
+    payload = torch.load(depth_ckpt, map_location="cpu", weights_only=True)
+    payload["config"]["compute_dtype"] = "float32"
+    ckpt = root / "depth_net" / "fixed_float32.pt"
+    torch.save(payload, ckpt)
+    card_root, cpu_root = root / "e2e_depth_card", root / "e2e_depth_cpu"
+    provider = load_depth_provider(str(ckpt), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    materialize_synthetic_building(str(src), bid, str(raw), depth_save_root=str(card_root), depth_provider=provider)
+    secs = time.perf_counter() - t0
+    maps = sorted((card_root / bid).glob("*.depth.png"))
+    n = len(list((raw / bid / "panos").glob("*.jpg")))
+    if len(maps) != n:
+        raise AssertionError(f"phase 11: the provider branch wrote {len(maps)} depth maps for {n} panos")
+    checked = maps[:E2E_PROVIDER_CHECK_PANOS]
+    shutil.copytree(card_root, cpu_root)
+    for m in checked:
+        (cpu_root / bid / m.name).unlink()
+    materialize_synthetic_building(str(src), bid, str(raw), depth_save_root=str(cpu_root),
+                                   depth_provider=load_depth_provider(str(ckpt), device="cpu"))
+    worst, share = 0, 0.0
+    for m in checked:
+        a = png.read_png(m).astype(np.int64)
+        b = png.read_png(cpu_root / bid / m.name).astype(np.int64)
+        worst = max(worst, int(np.abs(a - b).max()))
+        share = max(share, float((a != b).mean()))
+    row = {"panos": n, "seconds": secs, "s_per_pano": secs / n, "max_mm": worst, "share_apart": share}
+    log(f"phase 11: provider branch (phase 10's PanoDepthNet in float32, ResNet-50, 512x1024) over building {bid}'s "
+        f"{n} panos on the card in {secs:.2f} s ({row['s_per_pano']:.3f} s a pano: JPEG decode, forward, PNG encode); "
+        f"{len(checked)} panos card vs CPU: at most {worst} mm apart, on {100 * share:.4f}% of the pixels")
+    if worst > 1 or share > 1e-3:
+        raise AssertionError("phase 11: the provider branch's depth on the card disagrees with the CPU's")
+    return row
+
+
+def semantics_check(dev) -> dict:
+    """Phase 11 (b): semantic renders of phase 3's panos, the z-order and the
+    interpolation helpers, card against CPU."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.dataset.synthetic_bank import make_synthetic_pano_bank
+    from salve_tpu_torch.ops import bev
+    from salve_tpu_torch.ops.backproject import FLOOR_Z_RANGE
+    from salve_tpu_torch.rendering.bev_pair import BEVRenderConfig, render_identity_batched, surface_clouds
+    from salve_tpu_torch.utils import interpolation_utils, zorder_utils
+
+    cpu = torch.device("cpu")
+    depths, rgbs = make_synthetic_pano_bank(4, 512, 1024)
+    cfg = BEVRenderConfig(img_px=500, is_semantics=True)
+    imgs, launches = {}, {}
+    for d in (dev, cpu):
+        device_mod.reset_launch_counts()
+        imgs[d.type] = render_identity_batched(torch.as_tensor(depths, device=d), torch.as_tensor(rgbs, device=d),
+                                               FLOOR_Z_RANGE, cfg).cpu().numpy()
+        launches[d.type] = device_mod.launch_counts()
+    if not np.array_equal(imgs[dev.type], imgs["cpu"]) or launches[dev.type] != {"splat": 1, "fill": 0, "warp": 0}:
+        raise AssertionError(f"phase 11: semantic render: card equals CPU {np.array_equal(imgs[dev.type], imgs['cpu'])}"
+                             f", launches {launches[dev.type]}")
+    row = {"render_launches": launches[dev.type], "render_nonzero": float((imgs["cpu"] > 0).mean())}
+
+    # One pano's floor cloud on the 501^2 grid: integer cells, heights, colours.
+    xyz, c, v = surface_clouds(torch.as_tensor(depths[:1]), torch.as_tensor(rgbs[:1]), FLOOR_Z_RANGE, cfg)
+    xy_img, z, rgb255, valid = bev.splat_inputs(xyz, c, v, 500, cfg.meters_per_px)
+    keep = (valid & (xy_img >= 0).all(-1) & (xy_img <= 500).all(-1))[0].numpy()
+    x, y = xy_img[0, :, 0].numpy()[keep], xy_img[0, :, 1].numpy()[keep]
+    zz, cols = z[0].numpy()[keep].astype(np.float64), rgb255[0].numpy()[keep]
+    masks = {}
+    for d in (dev, cpu):
+        device_mod.reset_launch_counts()
+        masks[d.type] = zorder_utils.choose_elevated_repeated_vals(x, y, zz, device=d)
+        launches[d.type] = device_mod.launch_counts()
+    if not np.array_equal(masks[dev.type], masks["cpu"]) or launches[dev.type] != {"splat": 1, "fill": 0, "warp": 0}:
+        raise AssertionError(f"phase 11: choose_elevated_repeated_vals: launches {launches[dev.type]}")
+    row["zorder"] = {"points": int(len(x)), "winners": int(masks["cpu"].sum()), "launches": launches[dev.type]}
+    pts = np.stack([x, y], axis=1).astype(np.float64)
+    blank = np.zeros((501, 501, 3), np.uint8)
+    sparse = np.zeros((501, 501, 3), np.uint8)
+    sparse[y, x] = np.clip(np.round(cols), 0, 255).astype(np.uint8)
+    for sem in (False, True):
+        got = {d.type: interpolation_utils.interp_dense_grid_from_sparse(blank, pts, cols, 501, 501, sem, device=d)
+               for d in (dev, cpu)}
+        kept = {d.type: interpolation_utils.remove_hallucinated_content(sparse, got["cpu"], device=d)
+                for d in (dev, cpu)}
+        if not (np.array_equal(got[dev.type], got["cpu"]) and np.array_equal(kept[dev.type], kept["cpu"])):
+            raise AssertionError(f"phase 11: interpolation helpers (is_semantics={sem}): card differs from CPU")
+    log(f"phase 11: semantic render of 4 panos at 501^2 (floor): card equals CPU (u8), launches "
+        f"{row['render_launches']}; choose_elevated_repeated_vals on {len(x)} points ({row['zorder']['winners']} "
+        f"winners): card equals CPU, launches {row['zorder']['launches']}; interp_dense_grid_from_sparse (both "
+        "is_semantics) and remove_hallucinated_content: card equals CPU")
+    return row
+
+
+def icp_check(dev, root: Path, raw: Path, depth_root: Path) -> dict:
+    """Phase 11 (c): `cli/register_depth_maps_icp.py` on two panos of one
+    room of the eval building, card against CPU, and each scale's loop ms."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch.baselines import icp
+    from salve_tpu_torch.cli import register_depth_maps_icp as cli
+
+    bid = E2E_BUILDINGS[1]
+    rooms = {}
+    for p in sorted((raw / bid / "panos").glob("*.jpg")):
+        rooms.setdefault(p.stem.split("_pano_")[0], []).append(p)
+    p1, p2 = next(ps for ps in rooms.values() if len(ps) >= 2)[:2]
+    d1, d2 = (depth_root / bid / f"{p.stem}.depth.png" for p in (p1, p2))
+    argv = ["--depth_fpath_1", str(d1), "--rgb_fpath_1", str(p1), "--depth_fpath_2", str(d2), "--rgb_fpath_2", str(p2)]
+    Ts, secs = {}, {}
+    for d in (dev.type, "cpu"):
+        t0 = time.perf_counter()
+        Ts[d] = cli.main(argv + ["--save_fpath", str(root / f"icp_{d}.npy"), "--device", d])
+        secs[d] = time.perf_counter() - t0
+    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 11: the ICP's distance products ran with TF32 on")
+    rot = float(np.linalg.norm(Ts[dev.type][:3, :3] - Ts["cpu"][:3, :3]))
+    trans = float(np.abs(Ts[dev.type][:3, 3] - Ts["cpu"][:3, 3]).max())
+    cloud1, cloud2 = (cli.backproject_pano(str(d), str(p), device=dev) for d, p in ((d1, p1), (d2, p2)))
+    scale_ms = []
+    for radius, iters in zip(icp.VOXEL_RADII, icp.MAX_ITERS):
+        src, tgt, src6, tgt6 = icp.colored_scale_inputs(cloud1, cloud2, radius, dev)
+        eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+        run = lambda: icp._icp_colored_scale(src, tgt, src6, tgt6, eye, zero, radius, iters)  # noqa: E731
+        run()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+        scale_ms.append({"radius": radius, "iters": iters, "points": [len(src), len(tgt)], "ms": a.elapsed_time(b)})
+    row = {"pair": [p1.name, p2.name], "rot_frobenius": rot, "trans_max_m": trans, "cli_s": secs,
+           "scales": scale_ms}
+    log(f"phase 11: register_depth_maps_icp on {p1.stem} -> {p2.stem}: card vs CPU rotation {rot:.3e} (Frobenius), "
+        f"translation {trans:.3e} m; the CLI {secs[dev.type]:.2f} s on the card, {secs['cpu']:.2f} s on the CPU; "
+        "each scale's loop (CUDA events, host gaps included): " + ", ".join(
+            f"{s['radius']} m x {s['iters']} iterations on {s['points']} points {s['ms']:.2f} ms" for s in scale_ms))
+    if rot > 1e-4 or trans > 1e-4:
+        raise AssertionError("phase 11: the card's ICP disagrees with the CPU's")
+    return row
+
+
 def direct_batch_clouds(rng, depths, rgbs, n: int, render_cfg):
     """The floor clouds of a direct-mode batch: n random hypotheses' pano 1
     moved into the partner's frame (rendering/bev_pair.py:render_transformed_batched)."""
@@ -2420,9 +2739,15 @@ def main() -> int:
         f"(forward {dp['hohonet']['forward_ms']:.3f} ms); PanoDepthNet train step "
         f"{dp['depth_net']['images_per_s']:.1f} images/s at batch {DEPTH_TRAIN_BATCH} "
         f"({dp['depth_net']['train_step_ms']:.2f} ms)")
+    e2 = report["e2e"]
+    v = e2["harness"]["summary"]["verifier"]
+    log(f"throughput: end-to-end run {e2['harness']['seconds']:.1f} s over {e2['harness']['floors']} floors "
+        f"(verifier mAcc {v['mAcc']:.4f} on the held-out building); the materializer "
+        + ", ".join(f"{bid} {x:.3f}" for bid, x in e2["harness"]["materialize_s_per_pano"].items())
+        + f" s a pano; the provider branch {e2['provider']['s_per_pano']:.3f} s a pano")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
-            "launches_corpus", "launches_depth", "shape",
+            "launches_corpus", "launches_depth", "launches_e2e", "shape",
             "extra")
     rows = [{kk: row.get(kk) for kk in keys} for row in report["kernels"].values()]
     print(json.dumps({"kernels": rows}), flush=True)

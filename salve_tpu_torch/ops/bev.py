@@ -1,9 +1,11 @@
 """BEV texture-map rendering: bbox prune -> z-order splat -> fill -> mask.
 
-Port of salve_tpu/ops/bev.py:render_bev_images_batched (the texture branch,
-bev.py:404-431) and convex_hull_mask. The splat is kernel B1
-(ops/splat.py) and the fill + hallucination mask kernel B2 (ops/fill.py).
-Semantic renders (`is_semantics=True`, nearest_fill) are not ported yet.
+Port of salve_tpu/ops/bev.py: render_bev_images_batched (both branches),
+convex_hull_mask, and the plain-torch fills and masks. The splat is kernel
+B1 (ops/splat.py); the texture branch's fill + hallucination mask is kernel
+B2 (ops/fill.py). The semantic branch (`is_semantics=True`) fills with
+`nearest_fill` and masks with `hallucination_mask`, plain torch on the
+render's device, as salve_tpu takes XLA there and not its Pallas fill.
 """
 
 from __future__ import annotations
@@ -13,13 +15,51 @@ from typing import Tuple
 
 import torch
 
-from salve_tpu_torch.ops.fill import fill_and_mask
+# fill_holes (salve_tpu/ops/bev.py:210) lives beside B2's plain version, whose loop it is.
+from salve_tpu_torch.ops.fill import (  # noqa: F401
+    DEFAULT_MASK_KERNEL, FILL_ITERS, fill_and_mask, fill_holes, support_mask,
+)
 from salve_tpu_torch.ops.numerics import div_const
 from salve_tpu_torch.ops.splat import splat_zorder_batched
 
 # Grid defaults (salve_tpu/ops/bev.py:39-40): 501x501 renders at 0.02 m/px.
 DEFAULT_BEV_IMG_PX = 500
 DEFAULT_METERS_PER_PX = 0.02
+
+
+def splat_zorder(
+    xy_img: torch.Tensor, z: torch.Tensor, rgb: torch.Tensor, valid: torch.Tensor, img_h: int, img_w: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-cloud z-order splat ((N, ...) -> (H, W, ...)); see the batched form."""
+    sparse, occupied = splat_zorder_batched(xy_img[None], z[None], rgb[None], valid[None], img_h, img_w)
+    return sparse[0], occupied[0]
+
+
+def nearest_fill(sparse_img: torch.Tensor, occupied: torch.Tensor, iters: int = FILL_ITERS) -> torch.Tensor:
+    """Fill for semantic maps (salve_tpu/ops/bev.py:235): each round an empty
+    cell takes the exact colour of its first occupied neighbour in the order
+    (dy, dx) = (-1, -1), (-1, 0), ..., (1, 1), rolled with wraparound, never
+    blending palette colours. (..., H, W, 3) with (..., H, W) occupancy."""
+    img, occ = sparse_img, occupied
+    for _ in range(iters):
+        best, best_occ = img, occ
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dx == 0 and dy == 0:
+                    continue
+                sh_img = torch.roll(img, shifts=(dy, dx), dims=(-3, -2))
+                sh_occ = torch.roll(occ, shifts=(dy, dx), dims=(-2, -1))
+                take = ~best_occ & sh_occ
+                best = torch.where(take[..., None], sh_img, best)
+                best_occ = best_occ | sh_occ
+        img, occ = best, best_occ
+    return img
+
+
+def hallucination_mask(sparse_img_u8: torch.Tensor, k: int = DEFAULT_MASK_KERNEL) -> torch.Tensor:
+    """(..., H, W) bool: cells with >= 1 support in their k x k window, where
+    support is all three channels nonzero (salve_tpu/ops/bev.py:324)."""
+    return support_mask((sparse_img_u8 > 0).all(dim=-1), k)
 
 
 def convex_hull_mask(occupied: torch.Tensor, n_directions: int = 64) -> torch.Tensor:
@@ -96,11 +136,14 @@ def render_bev_images_batched(
     valid: torch.Tensor,
     img_px: int = DEFAULT_BEV_IMG_PX,
     meters_per_px: float = DEFAULT_METERS_PER_PX,
+    is_semantics: bool = False,
 ) -> torch.Tensor:
-    """Batched BEV texture render: (B, N) clouds -> (B, H, W, 3) uint8.
+    """Batched BEV render: (B, N) clouds -> (B, H, W, 3) uint8.
 
     bbox prune -> world->image rounding -> z-order splat (packed rgb888
-    winners) -> fill + hallucination mask -> convex hull -> vertical flip.
+    winners) -> fill + hallucination mask -> vertical flip. Textures fill
+    with B2 inside the occupied cells' convex hull; semantic maps take
+    `nearest_fill` over the whole grid (no hull), as salve_tpu does.
     """
     img_h = img_w = img_px + 1
     xy_img, z, rgb255, valid = splat_inputs(xyz, rgb, valid, img_px, meters_per_px)
@@ -108,10 +151,13 @@ def render_bev_images_batched(
         xy_img, z, rgb255, valid, img_h, img_w, quantize_u8=True
     )
     sparse_u8 = torch.clamp(torch.round(sparse), 0, 255).to(torch.uint8)
-    support = (sparse_u8 > 0).all(dim=-1)
 
-    hull = convex_hull_mask(occupied)
-    out = fill_and_mask(sparse.contiguous(), occupied.contiguous(), support.contiguous())
-    out = torch.where(hull[..., None], out, torch.zeros_like(out))
+    if is_semantics:
+        out = torch.where(hallucination_mask(sparse_u8)[..., None], nearest_fill(sparse, occupied), 0.0)
+    else:
+        support = (sparse_u8 > 0).all(dim=-1)
+        hull = convex_hull_mask(occupied)
+        out = fill_and_mask(sparse.contiguous(), occupied.contiguous(), support.contiguous())
+        out = torch.where(hull[..., None], out, torch.zeros_like(out))
     out = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
     return torch.flip(out, dims=[1])  # flipud, as in the reference

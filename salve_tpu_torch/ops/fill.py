@@ -54,22 +54,31 @@ def support_mask(support: torch.Tensor, k: int = DEFAULT_MASK_KERNEL) -> torch.T
     return box_sum(support.to(torch.float32), k) > 0.5
 
 
-def fill_and_mask_plain(
-    sparse: torch.Tensor, occupied: torch.Tensor, support: torch.Tensor
-) -> torch.Tensor:
-    """Plain version of B2: (B, H, W, 3) f32, (B, H, W) bool x2 -> (B, H, W, 3)."""
-    img = sparse.permute(0, 3, 1, 2).to(torch.float32)  # (B, 3, H, W)
-    o = occupied.to(torch.float32)[:, None]  # (B, 1, H, W)
-    for _ in range(FILL_ITERS):
+def fill_holes(sparse: torch.Tensor, occupied: torch.Tensor, iters: int = FILL_ITERS) -> torch.Tensor:
+    """Dilation-average hole fill of (..., H, W, 3) images with (..., H, W)
+    occupancy (salve_tpu/ops/bev.py:fill_holes): each round gives empty
+    cells the 3x3 box average of filled neighbours. Plain torch on any
+    device."""
+    lead, (h, w) = sparse.shape[:-3], sparse.shape[-3:-1]
+    img = sparse.reshape(-1, h, w, 3).permute(0, 3, 1, 2).to(torch.float32)  # (B, 3, H, W)
+    o = occupied.reshape(-1, 1, h, w).to(torch.float32)  # (B, 1, H, W)
+    for _ in range(iters):
         den = box_sum(o, 3)
         num = box_sum(img * o, 3)
         fill = num / torch.clamp(den, min=1.0)
         new_o = torch.clamp(den, 0.0, 1.0)
         img = torch.where(o > 0, img, fill)
         o = torch.maximum(o, new_o)
-    mask = support_mask(support)[:, None]
-    out = torch.where(mask, img, torch.zeros_like(img))
-    return out.permute(0, 2, 3, 1).contiguous()
+    return img.permute(0, 2, 3, 1).reshape(lead + (h, w, 3))
+
+
+def fill_and_mask_plain(
+    sparse: torch.Tensor, occupied: torch.Tensor, support: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of B2: (B, H, W, 3) f32, (B, H, W) bool x2 -> (B, H, W, 3)."""
+    img = fill_holes(sparse, occupied)
+    out = torch.where(support_mask(support)[..., None], img, torch.zeros_like(img))
+    return out.contiguous()
 
 
 def fill_and_mask_cuda(

@@ -46,8 +46,6 @@ def surface_clouds(
     xy @ _R_FIX.T is (y, -x), written out: exact, whatever the matmul
     precision.
     """
-    if cfg.is_semantics:
-        raise NotImplementedError("semantic renders are not ported yet")
     window = bp.surface_row_window(depths.shape[1], z_range, cfg.crop_ratio)
     xyz, c, v = bp.backproject_depth(depths, rgbs, z_range, cfg.crop_ratio, window)
     xyz = torch.stack([xyz[..., 1], -xyz[..., 0], xyz[..., 2]], dim=-1)
@@ -78,7 +76,7 @@ def render_identity_batched(
 ) -> torch.Tensor:
     """Render (B, H, W) panos in their own frames -> (B, h, w, 3) uint8."""
     xyz, c, v = surface_clouds(depths, rgbs, z_range, cfg)
-    return bev_ops.render_bev_images_batched(xyz, c, v, cfg.img_px, cfg.meters_per_px)
+    return bev_ops.render_bev_images_batched(xyz, c, v, cfg.img_px, cfg.meters_per_px, cfg.is_semantics)
 
 
 def render_transformed_batched(
@@ -95,7 +93,7 @@ def render_transformed_batched(
     """
     xyz, c, v = surface_clouds(depths, rgbs, z_range, cfg)
     xyz = _move_cloud(xyz, i2Ri1, i2ti1)
-    return bev_ops.render_bev_images_batched(xyz, c, v, cfg.img_px, cfg.meters_per_px)
+    return bev_ops.render_bev_images_batched(xyz, c, v, cfg.img_px, cfg.meters_per_px, cfg.is_semantics)
 
 
 def render_bev_pairs_batch_device(
@@ -126,7 +124,8 @@ def render_bev_pairs_batch_device(
     b = len(pair_indices)
     xyz, c, v = surface_clouds(depths[idx], rgbs[idx], z_range, cfg)
     xyz1 = _move_cloud(xyz[:b], torch.as_tensor(rotations, device=dev), torch.as_tensor(translations, device=dev))
-    imgs = bev_ops.render_bev_images_batched(torch.cat([xyz1, xyz[b:]]), c, v, cfg.img_px, cfg.meters_per_px)
+    imgs = bev_ops.render_bev_images_batched(torch.cat([xyz1, xyz[b:]]), c, v, cfg.img_px, cfg.meters_per_px,
+                                            cfg.is_semantics)
     return imgs[:b], imgs[b:]
 
 

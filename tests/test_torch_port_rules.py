@@ -70,7 +70,7 @@ def test_clis_start_without_packages_the_card_lacks():
     )
     for cli in ("run_sfm", "export_alignment_hypotheses", "test_fused", "stitch_floor_plan",
                 "stitch_floor_plan_clusters", "render_dataset_bev", "train", "test", "train_depth",
-                "batch_hohonet_inference"):
+                "batch_hohonet_inference", "end_to_end_eval", "register_depth_maps_icp"):
         out = subprocess.run([sys.executable, "-c", script, f"salve_tpu_torch.cli.{cli}"], cwd=REPO,
                              capture_output=True, text=True, timeout=300)
         assert out.returncode == 0, out.stderr
@@ -278,6 +278,44 @@ def test_depth_entry_points_raise_without_a_card(no_cuda, tmp_path):
     assert not (tmp_path / "m").exists() and not (tmp_path / "d").exists()
     with pytest.raises(FileNotFoundError):
         load_hohonet_depth_provider(absent, device="cpu")
+
+
+def test_end_to_end_and_icp_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    """The end-to-end harness, the ICP baseline and its CLI, the z-order and
+    interpolation helpers take the card by default and raise without one,
+    before they read or write any file; on the CPU they launch nothing."""
+    from salve_tpu_torch.baselines import icp
+    from salve_tpu_torch.cli import end_to_end_eval, register_depth_maps_icp
+    from salve_tpu_torch.utils import interpolation_utils, zorder_utils
+
+    d = tmp_path / "absent"
+    f = tmp_path / "f.png"
+    f.write_bytes(b"")
+    cloud = np.random.default_rng(0).uniform(0, 1, (64, 6))
+    xs = np.arange(8)
+    pts = np.array([[0.0, 0.0], [3.0, 1.0], [1.0, 4.0], [5.0, 5.0]])
+    calls = [
+        lambda: end_to_end_eval.main(["--src_zind_dir", str(tmp_path), "--output_dir", str(d / "e2e")]),
+        lambda: register_depth_maps_icp.main(["--depth_fpath_1", str(f), "--rgb_fpath_1", str(f),
+                                              "--depth_fpath_2", str(f), "--rgb_fpath_2", str(f),
+                                              "--save_fpath", str(d / "T.npy")]),
+        lambda: register_depth_maps_icp.backproject_pano(str(f), str(f)),
+        lambda: icp.register_colored_point_clouds(cloud, cloud),
+        lambda: icp.register_point_clouds(cloud[:, :3], cloud[:, :3]),
+        lambda: zorder_utils.choose_elevated_repeated_vals(xs, xs, xs * 0.1),
+        lambda: interpolation_utils.interp_dense_grid_from_sparse(np.zeros((8, 8, 3), np.uint8), pts, pts, 8, 8,
+                                                                  True),
+        lambda: interpolation_utils.remove_hallucinated_content(np.zeros((8, 8, 3), np.uint8),
+                                                                np.zeros((8, 8, 3), np.uint8)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not d.exists()
+    device_mod.reset_launch_counts()
+    assert zorder_utils.choose_elevated_repeated_vals(xs, xs, xs * 0.1, device="cpu").all()
+    assert icp.register_point_clouds(cloud[:, :3], cloud[:, :3], device="cpu").shape == (4, 4)
+    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0}
 
 
 def test_native_readers_build_apart_from_the_kernels():
