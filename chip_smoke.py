@@ -1,6 +1,6 @@
 """Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A, Stage D,
-stitching, the corpus renderer, verifier training, monocular depth and the
-end-to-end accuracy run on one CUDA card.
+stitching, the corpus renderer, verifier training, monocular depth, the
+end-to-end accuracy run and the evaluation CLIs on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -115,8 +115,10 @@ Phases:
      CPU's state after step 1 (the loss, each gradient relative to its
      tensor's largest magnitude, the running statistics and the following
      eval step's probabilities within 1e-9, every gradient nonzero, labels
-     equal where the CPU's probability is clear of 0.5); then the released
-     model's config (`salve_tpu/configs/ceiling_floor_rgb.yaml`: ResNet-152,
+     equal where the CPU's probability is clear of 0.5); the train split's
+     tuple order over phase 8's card and CPU trees must be the sorted one
+     (its digest and the files' are logged); then the released model's config
+     (`salve_tpu/configs/ceiling_floor_rgb.yaml`: ResNet-152,
      12-channel stem, resize 234 / crop 224, batch 256, bf16, Adam + poly
      LR) through `train()` for 2 epochs host-streamed (256 + 159 tuples a
      train epoch) and 2 epochs on the device corpus (one batch a split and
@@ -126,8 +128,12 @@ Phases:
      10 steps on one fixed class-separable batch of 32 (fresh crops and flips
      each step, as tests/training/test_train_step.py:39), a corpus batch's
      10 steps logged beside it;
-     B1-B3 launch 0 times; then the train
-     step's device ms at batch 256 (CUDA events) and tuples/s, the host ms
+     B1-B3 launch 0 times; two runs of 2 train steps at batch 256 from one
+     state, seed and batch under the training policy
+     (`device.deterministic_algorithms`, which `train()` applies) must end
+     with equal parameters, batch-norm statistics and Adam moments, bit for
+     bit; then the train step's device ms at batch 256 (CUDA events) and
+     tuples/s under the policy and without it, in turns, the host ms
      of one streamed batch's 1,024 decodes and resizes, the device corpus's
      gather ms, eval tuples/s, peak device memory, and the step's model
      FLOPs (from the layer shapes) as a share of the dense bf16 peak.
@@ -147,8 +153,11 @@ Phases:
      512x1024, bf16, batch 4) for 4 steps on phase 6's floors 0-2 with
      `evaluate_depth` on floor 3; 10 steps on one fixed batch at full width
      (the loss must fall), the train step's device ms, images/s, FLOP share
-     and peak memory; a checkpoint that reloads to the saved model's depth
-     bit for bit; B1-B3 launch 0 times in (a) and (b); (c) `render_pairs`,
+     and peak memory (the step under the training policy and without it, in
+     turns); a checkpoint that reloads to the saved model's depth
+     bit for bit; two runs of 2 full-width steps from one state and batch
+     (the depth step runs under the training policy) must end equal, bit
+     for bit; B1-B3 launch 0 times in (a) and (b); (c) `render_pairs`,
      direct arm, on 8 pairs of floor 0 reading (a)'s depth root: one B1 and
      one B2 a batch and surface, and its files.
  11. the end-to-end accuracy run and the rest of the device code: (a)
@@ -162,7 +171,10 @@ Phases:
      floor, B1 and B2 4 launches a floor and B3 none; the card's checkpoint
      evaluated on the CPU (probabilities within 1e-3, labels equal where the
      CPU's is clear of 0.5 by 1e-3) and `--stage_d_only` on the CPU from the
-     card's predictions (equal rows, pose errors within 1e-6); the summary's
+     card's predictions (equal rows, pose errors within 1e-6); the training
+     stage again from the same seed (`train()` and `evaluate()` on the
+     harness's corpus and config): every checkpoint entry and every
+     held-out batch file equal to the harness's, bit for bit; the summary's
      rows, `timings_s` and the materializer's seconds a pano; (a') the
      materializer's provider branch over building 1210's panos with phase
      10's PanoDepthNet checkpoint in float32, two panos card against CPU (at
@@ -174,6 +186,21 @@ Phases:
      `cli/register_depth_maps_icp.py` on two panos of one room of building
      1210, card against CPU within 1e-4 (rotation, Frobenius) and 1e-4 m,
      each scale's loop ms (CUDA events) and the CLI's seconds.
+ 12. the evaluation side of the paper: (a) `cli/eval_floorplan.py` (GT poses
+     with seeded MHNet layouts, `dataset/seeded_predictions.py`) over phase
+     6's floors of the train split on the card and the CPU: equal reports
+     (IoU and % localized exactly, errors within 1e-6), ms a floor on both;
+     the first floor's RANSAC Sim(3) and raster IoU kernels and summed
+     device ms (torch.profiler); (b) `cli/evaluate_sfm_baseline.py` for
+     OpenSfM and OpenMVG over `dataset/seeded_sfm.py`'s reconstructions of
+     all 4 floors (a seeded Sim(3), 1 degree and 5 cm of noise a pano, 3 panos
+     dropped), card against CPU (equal reports and `result_summaries`
+     files), each floor's aligned errors under 3x and 5x the noise, and
+     `analyze_algorithm_results`' summary; (c) `analyze_predictions`,
+     `measure_acc_vs_overlap`, `sanity_check_gt_pose_graphs`,
+     `compute_average_zind_stats` and `estimate_completion_percent` over
+     phase 11's harness tree: each returns (exit 0) with its summary;
+     B1-B3 launch 0 times.
 
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -181,10 +208,14 @@ and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import ctypes
 import gc
 import hashlib
+import io
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -263,6 +294,15 @@ E2E_BASE_SEED = 7
 E2E_VAL_BUILDINGS = 1
 E2E_EPOCHS = 2
 E2E_PROVIDER_CHECK_PANOS = 2
+# Phase 12: the oracle-pose floorplan evaluation on phase 6's floors of the
+# train split with seeded MHNet layouts, the SfM baselines on seeded
+# reconstructions of all 4 floors, and the analysis CLIs on phase 11's tree.
+EVAL_SPLIT = "train"
+SFM_ALGORITHMS = ("opensfm", "openmvg")
+# A floor's aligned errors against the injected noise (dataset/seeded_sfm.py:
+# 1 degree and 5 cm a pano): mean rotation error under 3x, translation 5x.
+SFM_ROT_BOUND = 3.0
+SFM_TRANS_BOUND = 5.0
 # The keys of salve_tpu's end_to_end_eval.json (salve_tpu/cli/end_to_end_eval.py:480-521).
 E2E_SUMMARY_KEYS = sorted([
     "train_building", "eval_building", "eval_procedural_buildings", "verifier", "depth", "reconstruction",
@@ -595,6 +635,7 @@ def run(dev) -> dict:
         report["training"] = training_phase(dev, Path(tmp) / "corpus" / "warp_card", Path(tmp) / "training")
         report["depth"] = depth_phase(dev, Path(tmp))
         report["e2e"] = e2e_phase(dev, Path(tmp), Path(tmp) / "depth_net" / "fixed.pt")
+        report["evaluation"] = evaluation_phase(dev, Path(tmp), Path(tmp) / "e2e")
     for name, row in report["kernels"].items():
         row["launches_corpus"] = {arm: report["corpus"][f"{arm}_card"]["launches"][name] for arm in ("warp", "direct")}
         row["launches_depth"] = {"hohonet": report["depth"]["hohonet"]["launches"][name],
@@ -790,6 +831,45 @@ def profiled_kernels(fn):
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return len(kernels), (sum(getattr(e, "device_time_total", 0) for e in kernels) / 1e3 if kernels else None)
+
+
+def state_bits(state) -> dict:
+    """Every tensor a train state carries, cloned: parameters, batch-norm
+    statistics and Adam's two moments."""
+    names = [n for n, _ in state.model.named_parameters()]
+    bits = {f"model/{k}": v.detach().clone() for k, v in state.model.state_dict().items()}
+    for moment in ("mu", "nu"):
+        bits.update({f"{moment}/{n}": t.detach().clone() for n, t in zip(names, getattr(state.optimizer, moment))})
+    return bits
+
+
+def repeat_check(what: str, state0, steps) -> dict:
+    """Two runs of `steps(state) -> state` from copies of `state0` under the
+    training policy (`device.deterministic_algorithms`, as `train()` and the
+    depth step apply it): every tensor of the two end states must be equal
+    bit for bit, and the steps must have moved the model."""
+    import torch
+
+    from salve_tpu_torch.device import deterministic_algorithms
+
+    start = state_bits(state0)
+    runs = []
+    for _ in range(2):
+        state = copy.deepcopy(state0)
+        with deterministic_algorithms():
+            state = steps(state)
+        torch.cuda.synchronize()
+        runs.append(state_bits(state))
+        del state
+    unequal = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    moved = sum(not torch.equal(runs[0][k], start[k]) for k in start if k.startswith("model/"))
+    row = {"tensors": len(start), "unequal": len(unequal), "moved_model_tensors": moved}
+    log(f"{what}: two runs from one state, seed and batch under the deterministic policy: {len(start)} tensors "
+        f"(parameters, batch-norm statistics, Adam moments), {len(unequal)} unequal; {moved} model tensors moved")
+    if unequal or not moved:
+        raise AssertionError(f"{what}: the two runs differ in {len(unequal)} tensors ({unequal[:6]}) or did not "
+                             f"train ({moved} model tensors moved)")
+    return row
 
 
 def ransac_check(dev, pano_dict) -> dict:
@@ -1702,6 +1782,29 @@ def training_phase(dev, corpus: Path, root: Path) -> dict:
     val_ds = BEVPairDataset("val", base, workers=base.workers)
     probe = torch.as_tensor(val_ds.load_batch(range(FIXED_BATCH))[0], device=dev)
 
+    # The train split's tuple order over phase 8's card and CPU trees (equal
+    # files): the sorted one, whatever the directory listing's order (salve_tpu
+    # takes the listing's), so one corpus trains alike on every machine. The
+    # digests let two calls be compared.
+    orders = {}
+    for tree in (corpus, corpus.parent / "warp_cpu"):
+        ds = BEVPairDataset("train", dataclasses.replace(base, data_root=str(tree)), workers=1)
+        orders[tree.name] = [tuple(Path(f).relative_to(tree).as_posix() for f in t[:-1]) for t in ds.data_list]
+    order = orders[corpus.name]
+    files = hashlib.sha256()
+    for f in sorted(p for p in corpus.rglob("*.jpg")):
+        files.update(f.relative_to(corpus).as_posix().encode() + hashlib.sha256(f.read_bytes()).digest())
+    out["tuple_order"] = {"tuples": len(order), "same_on_both_trees": order == orders["warp_cpu"],
+                          "sorted": order == sorted(order),
+                          "order_sha256": hashlib.sha256(repr(order).encode()).hexdigest(),
+                          "files_sha256": files.hexdigest()}
+    log(f"phase 9: the train split's {len(order)} tuples in listing order: the card's and the CPU's trees (equal "
+        f"files) give the same order: {out['tuple_order']['same_on_both_trees']}; sorted: "
+        f"{out['tuple_order']['sorted']}; sha256 of the order {out['tuple_order']['order_sha256'][:16]}, of the "
+        f"card tree's files {out['tuple_order']['files_sha256'][:16]}")
+    if order != orders["warp_cpu"] or order != sorted(order):
+        raise AssertionError("phase 9: the train split's tuple order is not the sorted one on both trees")
+
     def eval_logits(model):
         with torch.no_grad():
             x = transforms.preprocess_eval(probe, base.train_h, base.train_w)
@@ -1826,12 +1929,29 @@ def training_phase(dev, corpus: Path, root: Path) -> dict:
     state = train_lib.create_train_state(base, torch.Generator().manual_seed(4), 100, dev)
     step = train_lib.make_train_step(base)
     eval_step = train_lib.make_eval_step(base)
+
+    def two_steps(s):
+        g = torch.Generator().manual_seed(5)
+        for _ in range(2):
+            s, _ = step(s, batch_u8, labels_b, g)
+        return s
+
+    out["repeat"] = repeat_check(f"phase 9: train step at batch {b} (ResNet-{base.num_layers}, {base.train_h}^2, "
+                                 f"{base.compute_dtype}), 2 steps", state, two_steps)
     gen = torch.Generator().manual_seed(5)
     torch.cuda.reset_peak_memory_stats(dev)
-    t = {"train_step_ms": time_ms(lambda: step(state, batch_u8, labels_b, gen), rounds=5, per_round=2, warmup=2,
-                                  prefill=False)}
+    # The step under the training policy, as train() runs it, and without it,
+    # in turns (policy, without, without, policy).
+    turns = {True: [], False: []}
+    for policy in (True, False, False, True):
+        with device_mod.deterministic_algorithms() if policy else contextlib.nullcontext():
+            turns[policy].append(time_ms(lambda: step(state, batch_u8, labels_b, gen), rounds=5, per_round=2,
+                                         warmup=2, prefill=False))
+    t = {"train_step_ms": statistics.mean(turns[True]), "train_step_ms_without_policy": statistics.mean(turns[False]),
+         "train_step_ms_turns": [turns[True][0], turns[False][0], turns[False][1], turns[True][1]]}
     t["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     t["train_tuples_per_s"] = b / (t["train_step_ms"] / 1e3)
+    t["train_tuples_per_s_without_policy"] = b / (t["train_step_ms_without_policy"] / 1e3)
     t["eval_step_ms"] = time_ms(lambda: eval_step(state, batch_u8, labels_b), rounds=5, per_round=2, warmup=2,
                                 prefill=False)
     t["eval_tuples_per_s"] = b / (t["eval_step_ms"] / 1e3)
@@ -1845,9 +1965,11 @@ def training_phase(dev, corpus: Path, root: Path) -> dict:
     out["times"] = t
     card = card_line()
     log(f"phase 9: {card}: train step at batch {b} (ResNet-{base.num_layers}, {base.train_h}^2, "
-        f"{base.compute_dtype}) {t['train_step_ms']:.2f} ms device "
-        f"(CUDA events, median of 5 rounds of 2 after 2 warm-up steps), {t['train_tuples_per_s']:.1f} tuples/s; "
-        f"peak device memory {t['peak_memory_gb']:.2f} GB")
+        f"{base.compute_dtype}) under the deterministic policy {t['train_step_ms']:.2f} ms device "
+        f"(CUDA events, median of 5 rounds of 2 after 2 warm-up steps, mean of 2 turns), "
+        f"{t['train_tuples_per_s']:.1f} tuples/s; without the policy {t['train_step_ms_without_policy']:.2f} ms, "
+        f"{t['train_tuples_per_s_without_policy']:.1f} tuples/s (turns policy/without/without/policy "
+        f"{[round(x, 3) for x in t['train_step_ms_turns']]} ms); peak device memory {t['peak_memory_gb']:.2f} GB")
     log(f"phase 9: {card}: eval step at batch {b} {t['eval_step_ms']:.2f} ms, {t['eval_tuples_per_s']:.1f} tuples/s; "
         f"device-corpus gather of {b} tuples {t['gather_ms']:.4f} ms; host load of one streamed batch "
         f"({train_ds.n_imgs * b} decodes and resizes, {base.workers} threads) {t['host_load_ms']:.1f} ms (median of 3)")
@@ -2075,7 +2197,14 @@ def depth_phase(dev, root: Path) -> dict:
     if not losses[-1] < losses[0] or not np.all(np.isfinite(losses)):
         raise AssertionError("phase 10: the depth loss did not fall on a fixed batch")
     torch.cuda.reset_peak_memory_stats(dev)
-    net["train_step_ms"] = time_ms(lambda: step(state, *batch_dev), rounds=5, per_round=2, warmup=1, prefill=False)
+    # The step runs under the training policy; `__wrapped__` is the same step
+    # without it. In turns: policy, without, without, policy.
+    turns = {step: [], step.__wrapped__: []}
+    for fn in (step, step.__wrapped__, step.__wrapped__, step):
+        turns[fn].append(time_ms(lambda: fn(state, *batch_dev), rounds=5, per_round=2, warmup=1, prefill=False))
+    net["train_step_ms"] = statistics.mean(turns[step])
+    net["train_step_ms_without_policy"] = statistics.mean(turns[step.__wrapped__])
+    net["train_step_ms_turns"] = turns[step][:1] + turns[step.__wrapped__] + turns[step][1:]
     net["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     net["images_per_s"] = DEPTH_TRAIN_BATCH / (net["train_step_ms"] / 1e3)
     net["step_flops"] = 3.0 * count_model_flops(state.model, batch_dev[0])
@@ -2084,8 +2213,10 @@ def depth_phase(dev, root: Path) -> dict:
         net["forward_ms"] = time_ms(lambda: state.model.eval()(batch_dev[0][:1]), rounds=5, per_round=5, warmup=2,
                                     sleep_cycles=DEPTH_SLEEP_CYCLES)
     log(f"phase 10: {card}: PanoDepthNet train step at batch {DEPTH_TRAIN_BATCH} (ResNet-50, 512x1024, bf16) "
-        f"{net['train_step_ms']:.2f} ms device (CUDA events, median of 5 rounds of 2), {net['images_per_s']:.1f} "
-        f"images/s; step model FLOPs {net['step_flops'] / 1e12:.3f} T (convs and dense layers, x 3 for forward + "
+        f"under the deterministic policy {net['train_step_ms']:.2f} ms device (CUDA events, median of 5 rounds of 2, "
+        f"mean of 2 turns), {net['images_per_s']:.1f} images/s; without it {net['train_step_ms_without_policy']:.2f} "
+        f"ms (turns policy/without/without/policy {[round(x, 2) for x in net['train_step_ms_turns']]} ms); "
+        f"step model FLOPs {net['step_flops'] / 1e12:.3f} T (convs and dense layers, x 3 for forward + "
         f"backward), {100 * net['bf16_peak_share']:.2f}% of the bf16 peak; peak device memory "
         f"{net['peak_memory_gb']:.2f} GB; eval forward at batch 1 {net['forward_ms']:.2f} ms (behind a sleep kernel)")
     ckpt_fixed = depth_train.save_depth_checkpoint(str(root / "depth_net" / "fixed.pt"), state)
@@ -2095,6 +2226,16 @@ def depth_phase(dev, root: Path) -> dict:
         raise AssertionError("phase 10: the reloaded depth checkpoint's output differs from the saved model's")
     log(f"phase 10: checkpoint {Path(ckpt_fixed).name} ({Path(ckpt_fixed).stat().st_size / 1e6:.1f} MB) reloads "
         f"to the saved model's depth bit for bit")
+
+    def two_steps(s):
+        for _ in range(2):
+            s, _ = step(s, *batch_dev)
+        return s
+
+    net["repeat"] = repeat_check(f"phase 10: PanoDepthNet train step at batch {DEPTH_TRAIN_BATCH} (ResNet-50, "
+                                 "512x1024, bf16), 2 steps",
+                                 depth_train.create_depth_train_state(torch.Generator().manual_seed(1), device=dev),
+                                 two_steps)
     net["launches"] = device_mod.launch_counts()
     log(f"phase 10: launches of B1-B3 over the depth nets' training (none on this path): {net['launches']}")
     if any(net["launches"].values()) or any(launches_a.values()):
@@ -2133,6 +2274,8 @@ def e2e_phase(dev, root: Path, depth_ckpt: Path) -> dict:
     """Phase 11: the end-to-end accuracy run, the depth-provider branch of
     the materializer, semantic renders and the helpers, and the ICP
     baseline (module docstring)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2235,6 +2378,12 @@ def e2e_phase(dev, root: Path, depth_ckpt: Path) -> dict:
     log(f"phase 11: --stage_d_only on the CPU from the card's preds ({cpu_d_s:.1f} s): the same rows, pose errors "
         "within 1e-6")
 
+    # The training stage again, from the same seed and corpus: the training
+    # policy makes its checkpoint and the held-out probabilities the first
+    # run's, bit for bit.
+    out["repeat"] = repeat_training_stage(dev, dataclasses.replace(cfg, model_save_dirpath=str(root / "e2e_repeat")),
+                                          Path(v["ckpt"]), run_dir / "preds", root / "e2e_repeat_preds")
+
     # (a') The materializer's provider branch: phase 10's PanoDepthNet, in float32, on the eval building's panos.
     out["provider"] = provider_check(dev, root, src, raw, depth_ckpt)
     # (b) Semantic renders, the z-order and interpolation helpers on phase 3's panos.
@@ -2243,6 +2392,221 @@ def e2e_phase(dev, root: Path, depth_ckpt: Path) -> dict:
     out["icp"] = icp_check(dev, root, raw, run_dir / "depth")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 11: {out['seconds']:.1f} s")
+    return out
+
+
+def repeat_training_stage(dev, cfg, ckpt: Path, preds: Path, repeat_preds: Path) -> dict:
+    """Phase 11: `train()` and `evaluate()` again on the harness's corpus and
+    config (a fresh output directory), against the harness's checkpoint
+    `ckpt` and its held-out predictions `preds`: every checkpoint entry and
+    every batch file must be equal."""
+    import torch
+
+    from salve_tpu_torch.training import loop as train_loop
+
+    t0 = time.perf_counter()
+    results = train_loop.train(cfg, device=dev)
+    ckpts = sorted(Path(cfg.model_save_dirpath).glob("*/train_ckpt.pt"))
+    train_loop.evaluate(cfg, str(ckpts[-1]), "test", str(repeat_preds), device=dev)
+    secs = time.perf_counter() - t0
+
+    def entries(obj, prefix=""):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                yield from entries(v, f"{prefix}{k}/")
+        else:
+            yield prefix, obj
+
+    first, again = (dict(entries(torch.load(f, map_location="cpu", weights_only=True))) for f in (ckpt, ckpts[-1]))
+    unequal = [k for k in first if not (torch.equal(first[k], again[k]) if torch.is_tensor(first[k])
+                                        else first[k] == again[k])]
+    files = sorted(p.name for p in preds.glob("batch_*.json"))
+    differ = [n for n in files if json.loads((preds / n).read_text()) != json.loads((repeat_preds / n).read_text())]
+    n_probs = sum(len(json.loads((preds / n).read_text())["y_hat_probs"]) for n in files)
+    row = {"seconds": secs, "entries": len(first), "unequal": len(unequal), "batch_files": len(files),
+           "differing_files": len(differ), "val_mAcc": results["val_mAcc"]}
+    log(f"phase 11: the training stage again from the same seed ({secs:.1f} s, val mAcc by epoch "
+        f"{[round(x, 4) for x in results['val_mAcc']]}): {len(first)} checkpoint entries, {len(unequal)} unequal; "
+        f"{len(files)} held-out batch files ({n_probs} probabilities), {len(differ)} differ")
+    if unequal or set(first) != set(again) or not files or differ or \
+            sorted(p.name for p in repeat_preds.glob("batch_*.json")) != files:
+        raise AssertionError(f"phase 11: the repeated training stage differs: checkpoint entries {unequal[:6]}, "
+                             f"batch files {differ[:6]}")
+    return row
+
+
+def compare_reports(what: str, card, cpu) -> float:
+    """Floor reports of the card against the CPU's: the same floors, % localized
+    and IoU equal, pose errors within 1e-6; returns the largest error gap."""
+    worst = 0.0
+    if len(card) != len(cpu) or not card:
+        raise AssertionError(f"{what}: {len(card)} reports on the card, {len(cpu)} on the CPU")
+    for g, c in zip(card, cpu):
+        gaps = [abs(getattr(g, k) - getattr(c, k)) for k in ("avg_abs_rot_err", "avg_abs_trans_err")]
+        worst = max([worst] + gaps)
+        if ((g.building_id, g.floor_id, g.percent_panos_localized, g.floorplan_iou)
+                != (c.building_id, c.floor_id, c.percent_panos_localized, c.floorplan_iou) or not max(gaps) <= 1e-6):
+            raise AssertionError(f"{what}: floor {c.building_id} {c.floor_id}: card {g}, CPU {c}")
+    return worst
+
+
+def run_cli(module, argv, max_lines: int = 8) -> str:
+    """A CLI's `main(argv)` in this process; it must return or exit 0. Its
+    standard output is returned, and its first `max_lines` lines logged."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            module.main(argv)
+        except SystemExit as e:
+            if e.code not in (0, None):
+                raise AssertionError(f"phase 12: {module.__name__} exited {e.code}") from e
+    text = buf.getvalue()
+    name = module.__name__.rsplit(".", 1)[-1]
+    lines = [line.rstrip() for line in text.splitlines() if line.strip()]
+    for line in lines[:max_lines]:
+        log(f"phase 12: {name}: {line}")
+    if len(lines) > max_lines:
+        log(f"phase 12: {name}: ... {len(lines) - max_lines} more lines")
+    return text
+
+
+def evaluation_phase(dev, root: Path, e2e_dir: Path) -> dict:
+    """Phase 12: the oracle-pose floorplan evaluation, the SfM baselines and
+    the analysis CLIs (module docstring)."""
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.baselines.sfm_eval import analyze_algorithm_results
+    from salve_tpu_torch.cli import (analyze_predictions, compute_average_zind_stats, estimate_completion_percent,
+                                     eval_floorplan, evaluate_sfm_baseline, measure_acc_vs_overlap,
+                                     sanity_check_gt_pose_graphs)
+    from salve_tpu_torch.common import posegraph2d
+    from salve_tpu_torch.common.floor_reconstruction_report import render_raster_occupancy
+    from salve_tpu_torch.dataset import hnet_prediction_loader, seeded_sfm
+    from salve_tpu_torch.dataset.seeded_predictions import write_seeded_mhnet_predictions
+    from salve_tpu_torch.dataset.zind_partition import DATASET_SPLITS
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cpu = torch.device("cpu")
+    out = {}
+    zind = root / "zind"
+    bids = sorted(p.name for p in zind.iterdir())
+    device_mod.reset_launch_counts()
+
+    # (a) eval_floorplan: GT poses with seeded MHNet layouts, card against CPU.
+    mhnet = root / "mhnet_eval"
+    eval_bids = [bid for bid in bids if bid in DATASET_SPLITS[EVAL_SPLIT]]
+    for bid in eval_bids:
+        write_seeded_mhnet_predictions(mhnet, bid, json.loads((zind / bid / "zind_data.json").read_text()), int(bid))
+    t0 = time.perf_counter()
+    card_reports = eval_floorplan.main(["--raw_dataset_dir", str(zind), "--mhnet_predictions_data_root", str(mhnet),
+                                        "--split", EVAL_SPLIT, "--viz_save_dir", str(root / "oracle_card"),
+                                        "--device", dev.type])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_reports = eval_floorplan.eval_oraclepose_predictedlayout(str(zind), str(mhnet), EVAL_SPLIT,
+                                                                 str(root / "oracle_cpu"), device=cpu)
+    cpu_s = time.perf_counter() - t0
+    gap = compare_reports("phase 12: eval_floorplan", card_reports, cpu_reports)
+    out["eval_floorplan"] = {"floors": len(card_reports), "ms_card": 1e3 * card_s / len(card_reports),
+                             "ms_cpu": 1e3 * cpu_s / len(cpu_reports), "error_gap": gap,
+                             "iou": [r.floorplan_iou for r in card_reports]}
+    log(f"phase 12: {card}: eval_floorplan (GT poses, seeded MHNet layouts) over {len(card_reports)} floors of the "
+        f"{EVAL_SPLIT} split {eval_bids}: IoU {[round(r.floorplan_iou, 4) for r in card_reports]}, card equals CPU "
+        f"(IoU and % localized exactly, errors {gap:.2e} apart); {out['eval_floorplan']['ms_card']:.1f} ms a floor on "
+        f"the card, {out['eval_floorplan']['ms_cpu']:.1f} ms on the CPU")
+
+    # The report's device work for the first floor: the RANSAC Sim(3) alone,
+    # then the raster IoU alone (torch.profiler: kernels, summed device ms).
+    bid = eval_bids[0]
+    gt = posegraph2d.get_gt_pose_graph(bid, "floor_01", str(zind))
+    inferred = hnet_prediction_loader.load_inferred_floor_pose_graphs(bid, str(zind), str(mhnet))["floor_01"]
+    est = posegraph2d.PoseGraph2d.from_aligned_est_poses_and_inferred_layouts(gt, inferred)
+    aligned, _ = est.align_by_Sim3_to_ref_pose_graph(ref_pose_graph=gt, device=dev)
+    kernels = {"ransac": profiled_kernels(lambda: est.align_by_Sim3_to_ref_pose_graph(ref_pose_graph=gt, device=dev)),
+               "raster": profiled_kernels(lambda: render_raster_occupancy(aligned, gt, device=dev))}
+    out["report_kernels"] = {k: {"kernels": n, "device_ms": ms} for k, (n, ms) in kernels.items()}
+    log(f"phase 12: {card}: floor {bid}'s report on the card (torch.profiler): RANSAC Sim(3) "
+        f"{kernels['ransac'][0]} kernels, {kernels['ransac'][1]:.4f} ms summed device time; raster IoU "
+        f"{kernels['raster'][0]} kernels, {kernels['raster'][1]:.4f} ms")
+
+    # (b) The SfM baselines on seeded reconstructions of every floor.
+    results = root / "sfm_results"
+    for bid in bids:
+        seeded_sfm.write_opensfm_reconstruction(str(results), str(zind), bid, "floor_01", seed=int(bid))
+        seeded_sfm.write_openmvg_reconstruction(str(results), str(zind), bid, "floor_01", seed=int(bid))
+    out["sfm"] = {}
+    for alg in SFM_ALGORITHMS:
+        argv = ["--raw_dataset_dir", str(zind), "--results_dir", str(results), "--algorithm_name", alg]
+        t0 = time.perf_counter()
+        card_reports = evaluate_sfm_baseline.main(argv + ["--save_dir", str(root / f"sfm_{alg}_card"),
+                                                          "--device", dev.type])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu_reports = evaluate_sfm_baseline.main(argv + ["--save_dir", str(root / f"sfm_{alg}_cpu"),
+                                                             "--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        gap = compare_reports(f"phase 12: evaluate_sfm_baseline {alg}", card_reports, cpu_reports)
+        summaries = sorted(p.name for p in (root / f"sfm_{alg}_card" / "result_summaries").iterdir())
+        same_files = all((root / f"sfm_{alg}_card" / "result_summaries" / n).read_bytes()
+                         == (root / f"sfm_{alg}_cpu" / "result_summaries" / n).read_bytes() for n in summaries)
+        corpus = analyze_algorithm_results(str(zind), str(root / f"sfm_{alg}_card" / "result_summaries"))
+        row = {"floors": len(card_reports), "ms_card": 1e3 * card_s / len(card_reports),
+               "ms_cpu": 1e3 * cpu_s / len(cpu_reports), "error_gap": gap, "summary": corpus,
+               "rot_err_deg": [r.avg_abs_rot_err for r in card_reports],
+               "trans_err_m": [r.avg_abs_trans_err for r in card_reports],
+               "localized": [r.percent_panos_localized for r in card_reports],
+               "iou": [r.floorplan_iou for r in card_reports]}
+        out["sfm"][alg] = row
+        log(f"phase 12: {card}: evaluate_sfm_baseline {alg} over {len(card_reports)} seeded reconstructions: "
+            f"rotation errors {[round(x, 4) for x in row['rot_err_deg']]} deg, translation errors "
+            f"{[round(x, 4) for x in row['trans_err_m']]} m (noise {seeded_sfm.ROT_NOISE_DEG} deg, "
+            f"{seeded_sfm.TRANS_NOISE_M} m a pano; bounds {SFM_ROT_BOUND}x, {SFM_TRANS_BOUND}x), localized "
+            f"{[round(x, 2) for x in row['localized']]}%, IoU {[round(x, 4) for x in row['iou']]}; card equals CPU "
+            f"(errors {gap:.2e} apart, result_summaries equal: {same_files}); {row['ms_card']:.1f} ms a floor on the "
+            f"card, {row['ms_cpu']:.1f} ms on the CPU")
+        log(f"phase 12: analyze_algorithm_results {alg}: {corpus}")
+        if (not same_files or len(summaries) != len(bids)
+                or max(row["rot_err_deg"]) >= SFM_ROT_BOUND * seeded_sfm.ROT_NOISE_DEG
+                or max(row["trans_err_m"]) >= SFM_TRANS_BOUND * seeded_sfm.TRANS_NOISE_M
+                or not 0 < min(row["localized"]) < 100 or corpus["num_floors"] != len(bids)):
+            raise AssertionError(f"phase 12: evaluate_sfm_baseline {alg}: {row}")
+
+    # (c) The analysis CLIs on phase 11's harness tree (held-out building).
+    raw, hyp, preds, bev = (str(e2e_dir / d) for d in ("zind", "hypotheses", "preds", "bev"))
+    eval_bid = E2E_BUILDINGS[1]
+    t0 = time.perf_counter()
+    texts = {
+        "analyze_predictions": run_cli(analyze_predictions, [
+            "--preds_dir", preds, "--hypotheses_save_root", hyp, "--raw_dataset_dir", raw, "--building_id", eval_bid,
+            "--output_json", str(root / "analyze_predictions.json")]),
+        "measure_acc_vs_overlap": run_cli(measure_acc_vs_overlap, [
+            "--serialized_preds_json_dir", preds, "--hypotheses_save_root", hyp, "--raw_dataset_dir", raw]),
+        "sanity_check_gt_pose_graphs": run_cli(sanity_check_gt_pose_graphs, ["--raw_dataset_dir", raw]),
+        "compute_average_zind_stats": run_cli(compute_average_zind_stats, ["--raw_dataset_dir", raw]),
+        "estimate_completion_percent": run_cli(estimate_completion_percent, [
+            "--hypotheses_save_root", hyp, "--bev_save_root", bev]),
+    }
+    out["clis_s"] = time.perf_counter() - t0
+    expect = {"analyze_predictions": "hyp recall", "measure_acc_vs_overlap": "overlap IoU",
+              "sanity_check_gt_pose_graphs": "failed.", "compute_average_zind_stats": "Avg panos/floor",
+              "estimate_completion_percent": f"Building {eval_bid} Pos."}
+    missing = [k for k, v in expect.items() if v not in texts[k]]
+    if missing or "0 failed." not in texts["sanity_check_gt_pose_graphs"]:
+        raise AssertionError(f"phase 12: the analysis CLIs' summaries lack {missing}")
+    log(f"phase 12: the analysis CLIs on phase 11's tree exited 0 with their summaries in {out['clis_s']:.1f} s")
+
+    out["launches"] = device_mod.launch_counts()
+    log(f"phase 12: launches of B1-B3 over the phase (its device work is the RANSAC and the raster, plain torch): "
+        f"{out['launches']}")
+    if any(out["launches"].values()):
+        raise AssertionError(f"phase 12: the evaluation path launched {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12: {out['seconds']:.1f} s")
     return out
 
 
@@ -2686,6 +3050,9 @@ def check_small_input(dev) -> None:
 
 
 def main() -> int:
+    # Deterministic cuBLAS products (the training policy) need this before
+    # the process's first cuBLAS call.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -2731,8 +3098,9 @@ def main() -> int:
             f"floor {a['floor']} {a['pairs_per_s']:.2f} pairs/s on the card ({a['ms']:.1f} ms), {b['pairs_per_s']:.2f} "
             f"on the CPU ({b['ms']:.1f} ms)" for a, b in zip(rows_card, rows_cpu)))
     tr = report["training"]["times"]
-    log(f"throughput: training {tr['train_tuples_per_s']:.1f} tuples/s a train step at batch 256 "
-        f"({tr['train_step_ms']:.2f} ms), eval {tr['eval_tuples_per_s']:.1f} tuples/s, "
+    log(f"throughput: training {tr['train_tuples_per_s']:.1f} tuples/s a train step at batch 256 under the "
+        f"deterministic policy ({tr['train_step_ms']:.2f} ms; {tr['train_tuples_per_s_without_policy']:.1f} without "
+        f"it), eval {tr['eval_tuples_per_s']:.1f} tuples/s, "
         f"{100 * tr['bf16_peak_share']:.2f}% of the bf16 peak")
     dp = report["depth"]
     log(f"throughput: depth, HoHoNet batch_hohonet_inference {dp['hohonet']['panos_per_s']:.2f} panos/s "
@@ -2745,6 +3113,11 @@ def main() -> int:
         f"(verifier mAcc {v['mAcc']:.4f} on the held-out building); the materializer "
         + ", ".join(f"{bid} {x:.3f}" for bid, x in e2["harness"]["materialize_s_per_pano"].items())
         + f" s a pano; the provider branch {e2['provider']['s_per_pano']:.3f} s a pano")
+    ev = report["evaluation"]
+    log(f"throughput: eval_floorplan {ev['eval_floorplan']['ms_card']:.1f} ms a floor on the card, "
+        f"{ev['eval_floorplan']['ms_cpu']:.1f} ms on the CPU; evaluate_sfm_baseline " + "; ".join(
+            f"{alg} {row['ms_card']:.1f} / {row['ms_cpu']:.1f} ms" for alg, row in ev["sfm"].items())
+        + " a floor, card / CPU")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
             "launches_corpus", "launches_depth", "launches_e2e", "shape",

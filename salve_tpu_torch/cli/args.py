@@ -9,6 +9,11 @@ _TRUE = {"1", "true", "t", "yes", "y", "on"}
 _FALSE = {"0", "false", "f", "no", "n", "off"}
 
 
+class UsageError(Exception):
+    """Options that cannot run together; a CLI's `main` exits 2 on it
+    through `parser.error`, as click does on click.UsageError."""
+
+
 def existing_path(value: str) -> str:
     """click.Path(exists=True): the path must exist."""
     if not os.path.exists(value):

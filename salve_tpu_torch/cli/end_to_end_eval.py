@@ -18,6 +18,10 @@ checkpoint Stage C scores is the newest `ckpts/*/train_ckpt.pt`;
 warp arm of the corpus follows `--warp_corpus/--no_warp_corpus`, by default
 on for the card and off on the CPU; the summary records the flag as given.
 Plots are not drawn: Stage D serializes poses only.
+Stage C's training and scoring, the calibration's included, run under
+`device.deterministic_algorithms()` (in `train()` and `evaluate()`), and
+`main` sets cuBLAS's workspace for it: one seed gives the same checkpoint and
+probabilities on every run.
 
     python -m salve_tpu_torch.cli.end_to_end_eval --src_zind_dir ZIND --output_dir OUT \\
         --procedural_val_buildings 1 --calibrate_on_val [--device cpu]
@@ -35,7 +39,8 @@ from typing import List, Optional
 
 import numpy as np
 
-from salve_tpu_torch.cli.args import existing_path
+from salve_tpu_torch.cli.args import UsageError, existing_path
+from salve_tpu_torch.device import set_cublas_workspace_config
 
 logger = logging.getLogger(__name__)
 
@@ -52,10 +57,6 @@ FREEZE_CONFIG_GRID = [
     ("pose2_slam_rotfix_rescue", {"rescue_clusters": True, "glc": False, "rotfix": True}),
     ("pose2_slam_glc_rotfix_rescue", {"rescue_clusters": True, "glc": True, "rotfix": True}),
 ]
-
-
-class UsageError(Exception):
-    """Options that cannot run together; `main` exits 2 on it, as click does."""
 
 
 def _finite(x):
@@ -525,6 +526,7 @@ def _run_stage_d_only(out, hyp_root, raw_dir, preds_dir, plots_dir, method, conf
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
+    set_cublas_workspace_config()
     parser = build_parser()
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)

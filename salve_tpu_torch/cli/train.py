@@ -15,6 +15,7 @@ import logging
 from typing import List, Optional
 
 from salve_tpu_torch.cli.args import existing_path
+from salve_tpu_torch.device import set_cublas_workspace_config
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,6 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> None:
+    set_cublas_workspace_config()
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     from salve_tpu_torch.training.config import TrainingConfig, load_training_config

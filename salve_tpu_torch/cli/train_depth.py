@@ -22,6 +22,7 @@ import os
 from typing import List, Optional
 
 from salve_tpu_torch.cli.args import existing_path
+from salve_tpu_torch.device import set_cublas_workspace_config
 
 logger = logging.getLogger(__name__)
 
@@ -101,6 +102,7 @@ def run_train_depth(args: argparse.Namespace) -> dict:
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
+    set_cublas_workspace_config()
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     return run_train_depth(args)

@@ -6,7 +6,8 @@ rendering file paths, whose grammar encodes (pair idx, W/D/O pair uuid,
 configuration, floor, pano ids); the Sim(2) hypothesis itself is re-read
 from the Stage A JSON tree.
 
-A copy of salve_tpu/common/edge_classification.py (no JAX).
+A copy of salve_tpu/common/edge_classification.py (no JAX), except that
+the batch JSONs are read in sorted order, not the filesystem's.
 """
 
 from __future__ import annotations
@@ -87,10 +88,14 @@ def get_edge_classifications_from_serialized_preds(
 
     Filename grammar (edge_classification.py:143-176): e.g.
     `pair_3905___door_3_0_identity_floor_rgb_floor_01_partial_room_02_pano_38.jpg`.
+
+    The batch files are read in sorted order, so the measurements come in
+    one order on every machine (salve_tpu reads them in `glob`'s order,
+    which follows the filesystem's listing).
     """
     out: Dict[Tuple[str, str], List[EdgeClassification]] = defaultdict(list)
 
-    for json_fpath in glob.glob(f"{serialized_preds_json_dir}/batch*.json"):
+    for json_fpath in sorted(glob.glob(f"{serialized_preds_json_dir}/batch*.json")):
         data = read_json_file(json_fpath)
         for y_hat, y_true, y_hat_prob, fp0, fp1 in zip(
             data["y_hat"], data["y_true"], data["y_hat_probs"], data["fp0"], data["fp1"]

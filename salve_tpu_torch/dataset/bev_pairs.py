@@ -3,7 +3,11 @@
 Example discovery is filename-driven: tuples are grouped by the
 `pair_{idx}___...` grammar, labels come from the directory name
 (gt_alignment_approx=1, incorrect_alignment=0), and a tuple holds 2/4/6
-images by modality set. Tuples, labels and batch order equal salve_tpu's.
+images by modality set. Tuples, labels and batch order equal salve_tpu's on
+a sorted directory listing. salve_tpu takes each floor's files in `glob`'s
+order, which follows the filesystem's listing, so one corpus gave other
+batches, and another trained model, on another machine; the port sorts the
+listing, so one corpus gives one order everywhere.
 
 Pixels equal what salve_tpu's native loader gives (native/jpeg_loader.cpp:
 libjpeg, its float bilinear resize, then np.clip(np.round(x), 0, 255) to
@@ -109,7 +113,7 @@ def make_dataset(split: str, data_root: str, args: TrainingConfig) -> List[Tuple
     for label_name, label_idx in LABEL_DICT.items():
         for building_id in split_building_ids:
             for floor_id in FLOOR_IDS:
-                fpaths = glob.glob(f"{data_root}/{label_name}/{building_id}/pair_*___*_rgb_{floor_id}_*.jpg")
+                fpaths = sorted(glob.glob(f"{data_root}/{label_name}/{building_id}/pair_*___*_rgb_{floor_id}_*.jpg"))
                 if fpaths:
                     data_list.extend(get_tuples_from_fpath_list(fpaths, label_idx, args))
     return data_list

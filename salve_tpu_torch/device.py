@@ -13,6 +13,15 @@ Numerics policy on the card (applied by `resolve_device`):
     (salve_tpu/ops/bev.py:_box_counts). The verifier's production dtype is
     bf16 (TrainingConfig.compute_dtype), which this policy does not touch.
 
+Training policy (`deterministic_algorithms`): the verifier's and the depth
+net's training and evaluation run with deterministic algorithms, so two runs
+from one state, seed and batch give the same bits on the card, as
+salve_tpu's seeded step does on XLA:CPU. cuBLAS needs
+`CUBLAS_WORKSPACE_CONFIG=:4096:8` in the environment before its first call
+for that; the training CLIs (`set_cublas_workspace_config`) and
+chip_smoke.py set it. An op with no deterministic CUDA kernel raises under
+the policy.
+
 Launch counts: every CUDA kernel wrapper adds one to its entry in
 `LAUNCHES` each time it launches its kernel, and nowhere else, so a run can
 show that the main path went through the kernels.
@@ -20,7 +29,9 @@ show that the main path went through the kernels.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import contextlib
+import os
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 
@@ -42,6 +53,34 @@ def apply_numerics_policy() -> None:
     """Full-float32 matmuls and convolutions on the card (module docstring)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# cuBLAS's fixed workspace, which deterministic matrix products need; it is
+# read once, at the process's first cuBLAS call.
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"
+
+
+def set_cublas_workspace_config() -> None:
+    """Set `CUBLAS_WORKSPACE_CONFIG` unless the caller's environment does;
+    call before the process's first CUDA work."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms() -> Iterator[None]:
+    """Deterministic algorithms, cuDNN's deterministic convolutions and no
+    cuDNN autotuning inside the block; the three flags are restored on exit,
+    also when the block raises."""
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2], saved[3]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -20,7 +20,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from salve_tpu_torch.device import DeviceLike, resolve_device
+from salve_tpu_torch.device import DeviceLike, deterministic_algorithms, resolve_device
 from salve_tpu_torch.models.depth_net import (PANO_H, PANO_W, PanoDepthNet, init_flax_style,
                                                synthesize_depth_from_layout)
 from salve_tpu_torch.training.train import OptaxAdam
@@ -74,8 +74,11 @@ def make_depth_train_step():
     """Returns step(state, rgb (B,H,W,3), depth_gt (B,H,W), valid (B,H,W))
     -> (state, loss): the forward in train mode, the loss, the backward and
     the Adam update. Inputs are host arrays or tensors; the loss stays on
-    the device; after the step each parameter's `.grad` holds its gradient."""
+    the device; after the step each parameter's `.grad` holds its gradient.
+    The step runs under `device.deterministic_algorithms()`, so one state and
+    batch give the same bits on every run."""
 
+    @deterministic_algorithms()
     def step(state: DepthTrainState, rgb, depth_gt, valid):
         dev, dtype = state.device, state.model.refine2.weight.dtype
         rgb, depth_gt, valid = (torch.as_tensor(a).to(dev, dtype, non_blocking=True) for a in (rgb, depth_gt, valid))

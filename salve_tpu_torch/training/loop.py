@@ -4,7 +4,9 @@ Keeps salve_tpu's contract (scripts/train.py, scripts/test.py through it):
 per-epoch train and val metrics accumulated into a results dict,
 best-`val_mAcc` checkpointing, the results JSON and config copy, and
 `evaluate` writing the `batch_{i}.json` predictions Stage D reads. Runs on
-one card (`device=None`); a mesh of more than one device raises.
+one card (`device=None`); a mesh of more than one device raises. Both run
+under `device.deterministic_algorithms()`: one seed and one corpus give the
+same bits on every run, as salve_tpu's do on XLA:CPU.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from salve_tpu_torch.dataset.bev_pairs import BEVPairDataset
-from salve_tpu_torch.device import DeviceLike, resolve_device
+from salve_tpu_torch.device import DeviceLike, deterministic_algorithms, resolve_device
 from salve_tpu_torch.training import train as train_lib
 from salve_tpu_torch.training.config import TrainingConfig
 from salve_tpu_torch.training.meters import PrecisionRecallMeter, SegmentationAverageMeter
@@ -152,6 +154,7 @@ def _data_sources(cfg: TrainingConfig, train_ds, val_ds, device: torch.device):
     return train_ds, val_ds
 
 
+@deterministic_algorithms()
 def train(
     cfg: TrainingConfig,
     seed: int = 0,
@@ -228,6 +231,7 @@ def train(
     return dict(results_dict)
 
 
+@deterministic_algorithms()
 def evaluate(
     cfg: TrainingConfig,
     ckpt_fpath: str,

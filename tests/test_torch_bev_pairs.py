@@ -4,7 +4,10 @@
     bit-exact with photometric jitter off, within 1e-3 on the 0-255 scale
     with it on; `preprocess_eval` is bit-exact;
   * the dataset: tuples, labels, order and batches equal `make_dataset` and
-    `iter_batches` for every modality set, with `split_overrides`;
+    `iter_batches` for every modality set, with `split_overrides`, salve_tpu
+    given a sorted directory listing (`listing_sorted_make_dataset`): it
+    takes `glob`'s order, the port sorts; the port's order is the same
+    whatever order the listing comes in;
   * pixels: `decode_resize_batch` equals native/jpeg_loader.cpp (libjpeg,
     its float bilinear resize, np.clip(np.round(x)) to u8) byte for byte,
     the reference built into tmp_path with its own g++ line;
@@ -16,6 +19,7 @@ shared with tests/test_torch_training.py).
 """
 
 import ctypes
+import glob
 import shutil
 import subprocess
 from dataclasses import replace
@@ -50,6 +54,27 @@ MODALITY_SETS = [
     ("ceiling_rgb_texture", "floor_rgb_texture"),
     ("ceiling_rgb_texture", "floor_rgb_texture", "layout"),
 ]
+
+
+_GLOB = glob.glob
+
+
+def listing_sorted(fn):
+    """`fn` run on sorted directory listings. salve_tpu reads a floor's
+    rendered files (`make_dataset`) and the `batch_*.json` predictions
+    (`edge_classification`) in `glob`'s order, which follows the filesystem;
+    the port sorts them. Tests that hold the port's order to salve_tpu's
+    run salve_tpu's function through this."""
+
+    def sorted_listing(*args, **kwargs):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(glob, "glob", lambda pattern, **kw: sorted(_GLOB(pattern, **kw)))
+            return fn(*args, **kwargs)
+
+    return sorted_listing
+
+
+listing_sorted_make_dataset = listing_sorted(jbp.make_dataset)
 
 
 def _fname(pair: int, surface: str, floor: str, pano: int) -> str:
@@ -180,18 +205,22 @@ def test_drawn_parameters_are_in_range_and_seeded():
 
 
 @pytest.mark.parametrize("modalities", MODALITY_SETS, ids=["+".join(m) for m in MODALITY_SETS])
-def test_make_dataset_equals_salve_tpu(bev_tree, modalities):
+def test_make_dataset_equals_salve_tpu(bev_tree, modalities, monkeypatch):
     jcfg, tcfg = _configs(bev_tree, modalities)
     overrides = {TRAIN_IDS[1]: "val", VAL_ID: "test"}
     for split in ("train", "val", "test"):
-        ref = jbp.make_dataset(split, jcfg.data_root, jcfg)
+        ref = listing_sorted_make_dataset(split, jcfg.data_root, jcfg)
         got = tbp.make_dataset(split, tcfg.data_root, tcfg)
         assert got == ref and len(got) > 0, split
-        ref = jbp.make_dataset(split, jcfg.data_root, replace(jcfg, split_overrides=overrides))
+        ref = listing_sorted_make_dataset(split, jcfg.data_root, replace(jcfg, split_overrides=overrides))
         got = tbp.make_dataset(split, tcfg.data_root, replace(tcfg, split_overrides=overrides))
         assert got == ref and len(got) > 0, (split, overrides)
     n_imgs = len(got[0]) - 1
     assert n_imgs == {1: 2, 2: 4, 3: 6}[len(modalities)]
+    # The port's order does not follow the listing's: reversed, it is the same.
+    want = tbp.make_dataset("train", tcfg.data_root, tcfg)
+    monkeypatch.setattr(tbp.glob, "glob", lambda pattern, **kw: sorted(_GLOB(pattern, **kw), reverse=True))
+    assert tbp.make_dataset("train", tcfg.data_root, tcfg) == want
 
 
 def test_filename_parsers_and_building_ids(bev_tree):
@@ -211,6 +240,7 @@ def test_iter_batches_equal_salve_tpu(bev_tree, modalities, monkeypatch):
     arithmetic (the reference library built privately, see
     `_reference_loader`) or, without g++/libjpeg, are not compared here."""
     jcfg, tcfg = _configs(bev_tree, modalities)
+    monkeypatch.setattr(jbp, "make_dataset", listing_sorted_make_dataset)
     jds = jbp.BEVPairDataset("train", jcfg, workers=2)
     tds = tbp.BEVPairDataset("train", tcfg, workers=2)
     ref_lib = _reference_loader_or_none(bev_tree)

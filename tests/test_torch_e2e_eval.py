@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 
 from salve_tpu.cli import end_to_end_eval as jcli
+from salve_tpu.common import edge_classification as jedge_classification
 from salve_tpu.common.floor_reconstruction_report import FloorReconstructionReport as JReport
 from salve_tpu.dataset import bev_pairs as jbp
 from salve_tpu_torch.cli import end_to_end_eval as tcli
@@ -50,6 +51,7 @@ from salve_tpu_torch.common.floor_reconstruction_report import FloorReconstructi
 from salve_tpu_torch.dataset.procedural import generate_building_json
 from salve_tpu_torch.dataset.zind_partition import DATASET_SPLITS
 from salve_tpu_torch.native import png
+from test_torch_bev_pairs import listing_sorted, listing_sorted_make_dataset
 from test_torch_training import _decode_like_salve_tpu_native, _one_jax_device
 
 TRAIN, EVAL = "0000", "1210"
@@ -82,11 +84,20 @@ def _prepare(out: Path) -> Path:
     return out
 
 
+def _sorted_stage_d_listing(mp):
+    """salve_tpu's Stage D reads the batch files in sorted order, as the port
+    does (test_torch_bev_pairs.listing_sorted)."""
+    get = jedge_classification.get_edge_classifications_from_serialized_preds
+    mp.setattr(jedge_classification, "get_edge_classifications_from_serialized_preds", listing_sorted(get))
+
+
 def _run_salve_tpu(argv):
     mp = pytest.MonkeyPatch()
     try:
         _one_jax_device(mp)
         mp.setattr(jbp.BEVPairDataset, "_load_tuples", _decode_like_salve_tpu_native)
+        mp.setattr(jbp, "make_dataset", listing_sorted_make_dataset)
+        _sorted_stage_d_listing(mp)
         jcli.run_end_to_end_eval.main(argv, standalone_mode=False)
     finally:
         mp.undo()
@@ -216,9 +227,10 @@ def test_stage_d_only_equals_salve_tpus(runs, tmp_path):
     assert ref["stage_d_only"] and got == ref
 
 
-def test_calibrate_on_val_split_equals_salve_tpus(runs, tmp_path):
+def test_calibrate_on_val_split_equals_salve_tpus(runs, tmp_path, monkeypatch):
     """From salve_tpu's val predictions of the whole run (the ckpt tag
     "none"), over the six configurations and a shorter threshold grid."""
+    _sorted_stage_d_listing(monkeypatch)
     ref_out = runs["ref"]
     val_preds, = ref_out.glob("val_preds_*")
     for side in ("ref", "got"):

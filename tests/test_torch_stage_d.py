@@ -37,6 +37,7 @@ from salve_tpu_torch.dataset.seeded_predictions import (
 )
 from salve_tpu_torch.hypotheses.export import export_single_building_wdo_alignment_hypotheses
 
+from test_torch_bev_pairs import listing_sorted
 from test_torch_stage_a import _write_building
 
 # (seed, generate_building_json kwargs): two 4x4 floors (12-17 panos) and a
@@ -98,7 +99,7 @@ def run_both(inputs, tmp_path, method, **kwargs):
     common.setdefault("use_axis_alignment", False)
     common.setdefault("predictions_data_root", None)
     port = run_sfm.run_incremental_reconstruction(plot_save_dir=str(tmp_path / "port"), device="cpu", **common)
-    ref = jrun_sfm.run_incremental_reconstruction(plot_save_dir=str(tmp_path / "ref"), **common)
+    ref = listing_sorted(jrun_sfm.run_incremental_reconstruction)(plot_save_dir=str(tmp_path / "ref"), **common)
     return port, ref
 
 

@@ -48,6 +48,7 @@ from salve_tpu_torch.geometry.pose2 import Pose2, wrap_to_pi
 from salve_tpu_torch.training import meters
 from salve_tpu_torch.utils import axis_alignment, graph_utils, iou_utils, pr_utils, profiler
 
+from test_torch_bev_pairs import listing_sorted
 from test_torch_stage_d import FLOORS, WDO_TYPES, make_stage_d_inputs
 
 
@@ -79,7 +80,8 @@ class Floor:
                     serialized_preds_json_dir=inputs["preds"], hypotheses_save_root=inputs["hyp"],
                     allowed_wdo_types=WDO_TYPES)
         self.ms = edge_classification.get_edge_classifications_from_serialized_preds(**args)[(building_id, floor_id)]
-        self.jms = jedge_classification.get_edge_classifications_from_serialized_preds(**args)[(building_id, floor_id)]
+        self.jms = listing_sorted(jedge_classification.get_edge_classifications_from_serialized_preds)(**args)[
+            (building_id, floor_id)]
         self.gt = posegraph2d.get_gt_pose_graph(building_id, floor_id, inputs["raw"])
         self.jgt = jposegraph2d.get_gt_pose_graph(building_id, floor_id, inputs["raw"])
         self.hi = edge_classification.get_conf_thresholded_edge_measurements(self.ms, 0.93)
@@ -92,6 +94,7 @@ class Floor:
         self.jpool = jedge_classification.get_most_likely_relative_pose_per_edge(jpool, self.jgt)
         self.layouts = {i: np.asarray(p.room_vertices_local_2d) for i, p in self.gt.nodes.items()}
         self.preds = inputs["preds"]
+        self.hyp = inputs["hyp"]
 
 
 @pytest.fixture(scope="module")
@@ -131,6 +134,25 @@ def test_edge_classification_copy(floors):
     assert sorted(edge_classification.get_available_floor_ids_building_ids_from_serialized_preds(preds)) == \
         sorted(jedge_classification.get_available_floor_ids_building_ids_from_serialized_preds(preds)) == \
         [("0000", "floor_01"), ("0001", "floor_01")]
+
+
+def test_edge_classifications_do_not_follow_the_listing_order(floors, monkeypatch):
+    """The port reads the batch files in sorted order: on a reversed listing
+    it gives the same measurements in the same order."""
+    import glob
+
+    f = floors[0]
+    building_id, floor_id = f.ms[0].building_id, f.ms[0].floor_id
+    args = dict(query_building_id=building_id, query_floor_id=floor_id, serialized_preds_json_dir=f.preds,
+                hypotheses_save_root=f.hyp, allowed_wdo_types=WDO_TYPES)
+    key = lambda m: (m.i1, m.i2, m.pair_idx, m.wdo_pair_uuid, m.configuration, m.prob)  # noqa: E731
+    want = [key(m) for m in edge_classification.get_edge_classifications_from_serialized_preds(**args)[
+        (building_id, floor_id)]]
+    listing = glob.glob
+    monkeypatch.setattr(glob, "glob", lambda pattern, **kw: sorted(listing(pattern, **kw), reverse=True))
+    got = [key(m) for m in edge_classification.get_edge_classifications_from_serialized_preds(**args)[
+        (building_id, floor_id)]]
+    assert got == want and len(glob.glob(f"{f.preds}/batch*.json")) > 1
 
 
 def test_graph_utils_and_spanning_tree_copies(floors):

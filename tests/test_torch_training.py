@@ -26,7 +26,12 @@ the augmentation parameters JAX draws (test_torch_bev_pairs._jax_aug_params).
     lengths, losses within 1e-3 relative, the checkpoint and meta files;
     `resume_from` with `finetune_from` raises;
   * (j) `evaluate` writes batch_{i}.json: y_hat, y_true, fp0, fp1 equal,
-    y_hat_probs within 1e-4.
+    y_hat_probs within 1e-4;
+  * (k) the training policy: `deterministic_algorithms()` sets its three
+    flags and restores them, also when the block raises; `train()`,
+    `evaluate()` and the depth step run under it; two runs of 2 steps from
+    one state, batch and augmentation seed give equal parameters, batch-norm
+    statistics and Adam moments, bit for bit.
 
 Pixels reach salve_tpu's loop through the port's decoder, which equals
 salve_tpu's native loader byte for byte (test_torch_bev_pairs.py): its own
@@ -34,6 +39,7 @@ loader would build native/libjpeg_loader.so inside the checkout, which
 concurrent test workers race on.
 """
 
+import copy
 import glob
 import json
 from pathlib import Path
@@ -50,6 +56,7 @@ from salve_tpu.parallel.mesh import make_mesh
 from salve_tpu.training import loop as jloop
 from salve_tpu.training import train as jtrain
 from salve_tpu.training.config import TrainingConfig as JaxConfig
+from salve_tpu_torch.device import deterministic_algorithms
 from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet, init_flax_style
 from salve_tpu_torch.models.weights import state_dict_from_flax
 from salve_tpu_torch.native.jpeg import decode_resize_batch
@@ -58,7 +65,8 @@ from salve_tpu_torch.training import train as ttrain
 from salve_tpu_torch.training import transforms as tt
 from salve_tpu_torch.training.config import TrainingConfig
 from salve_tpu_torch.training.flax_checkpoint import _param_names, flax_checkpoint_to_port
-from test_torch_bev_pairs import TEST_ID, TRAIN_IDS, VAL_ID, _jax_aug_params, write_bev_tree
+from test_torch_bev_pairs import (TEST_ID, TRAIN_IDS, VAL_ID, _jax_aug_params, listing_sorted_make_dataset,
+                                  write_bev_tree)
 
 CPU = torch.device("cpu")
 SMALL = dict(num_layers=18, resize_h=40, resize_w=40, train_h=32, train_w=32, batch_size=8,
@@ -388,6 +396,7 @@ def trained(corpus, tmp_path_factory, jax_state):
     try:
         _one_jax_device(mp)
         mp.setattr(jbp.BEVPairDataset, "_load_tuples", _decode_like_salve_tpu_native)
+        mp.setattr(jbp, "make_dataset", listing_sorted_make_dataset)
         ref = jloop.train(jcfg, seed=0, resume_from=start)
         draws = _jax_train_draws(0, 2, 2)
         mp.setattr(tt, "draw_augment_params", lambda *a, **k: draws.pop(0))
@@ -455,6 +464,7 @@ def test_evaluate_matches_salve_tpu(trained, corpus, tmp_path):
     try:
         _one_jax_device(mp)
         mp.setattr(jbp.BEVPairDataset, "_load_tuples", _decode_like_salve_tpu_native)
+        mp.setattr(jbp, "make_dataset", listing_sorted_make_dataset)
         ref = jloop.evaluate(trained["jcfg"], ckpt, "test", str(tmp_path / "jax"))
     finally:
         mp.undo()
@@ -479,3 +489,91 @@ def test_evaluate_matches_salve_tpu(trained, corpus, tmp_path):
     test_cli.main(["--config_fpath", str(cfg_file), "--ckpt_fpath", port_ckpt, "--data_root", str(corpus),
                    "--serialization_save_dir", str(tmp_path / "cli"), "--device", "cpu", "--split", "val"])
     assert sorted(p.name for p in (tmp_path / "cli").glob("batch_*.json")) == ["batch_0.json"]
+
+
+# ---------------------------------------------------------------- (k) the deterministic policy
+
+POLICY = (True, False, True, False)
+
+
+def _flags():
+    return (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+
+
+def test_deterministic_algorithms_sets_and_restores_flags():
+    before = _flags()
+    with deterministic_algorithms():
+        assert _flags() == POLICY
+        with deterministic_algorithms():
+            assert _flags() == POLICY
+        assert _flags() == POLICY
+    assert _flags() == before
+    # Other settings come back too, also when the block raises.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.benchmark = True
+    try:
+        with pytest.raises(ValueError, match="inside"):
+            with deterministic_algorithms():
+                assert _flags() == POLICY
+                raise ValueError("inside")
+        assert _flags() == (True, True, before[2], True)
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before[2], before[3]
+    assert _flags() == before
+
+
+def test_training_entry_points_run_under_the_policy(monkeypatch, tmp_path):
+    """train(), evaluate() and the depth step set the policy before they
+    touch the device, and leave the flags as they found them."""
+    from salve_tpu_torch.training import depth as tdepth
+
+    seen, before = [], _flags()
+
+    def record(*args, **kwargs):
+        seen.append(_flags())
+        raise RuntimeError("recorded")
+
+    state = tdepth.create_depth_train_state(torch.Generator().manual_seed(0), num_layers=18, input_hw=(32, 64),
+                                            embed_dim=32, num_blocks=1, device="cpu")
+    monkeypatch.setattr(tloop, "resolve_device", record)
+    monkeypatch.setattr(tdepth, "depth_loss", record)
+    zeros = np.zeros((1, 32, 64), np.float32)
+    calls = [lambda: tloop.train(TrainingConfig(**SMALL)),
+             lambda: tloop.evaluate(TrainingConfig(**SMALL), str(tmp_path / "c.pt"), "test", str(tmp_path)),
+             lambda: tdepth.make_depth_train_step()(state, zeros[..., None].repeat(3, -1), zeros, zeros)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="recorded"):
+            call()
+    assert seen == [POLICY] * 3 and _flags() == before
+
+
+def test_two_runs_from_one_state_are_bit_equal(batch):
+    """Two runs of 2 small-width steps from one state, one batch and one
+    augmentation seed, under the policy: the parameters, batch-norm
+    statistics and Adam moments are equal bit for bit. The state is made
+    once and copied: both runs start from the same bits."""
+    imgs, labels = batch
+    cfg = TrainingConfig(**SMALL)
+    state0 = ttrain.create_train_state(cfg, torch.Generator().manual_seed(3), 10, CPU)
+    step = ttrain.make_train_step(cfg)
+    runs = []
+    for _ in range(2):
+        state, gen = copy.deepcopy(state0), torch.Generator().manual_seed(5)
+        with deterministic_algorithms():
+            for _ in range(2):
+                state, _ = step(state, imgs, labels, gen)
+        opt = state.optimizer.state_dict(state.param_names())
+        runs.append(({k: v.clone() for k, v in state.model.state_dict().items()}, opt))
+    (model_a, opt_a), (model_b, opt_b) = runs
+    assert model_a.keys() == model_b.keys()
+    assert [k for k in model_a if not torch.equal(model_a[k], model_b[k])] == []
+    assert (opt_a["count"], opt_a["schedule_count"]) == (opt_b["count"], opt_b["schedule_count"]) == (2, 2)
+    for moment in ("mu", "nu"):
+        assert [k for k in opt_a[moment] if not torch.equal(opt_a[moment][k], opt_b[moment][k])] == []
+    # The steps trained: the check compares moved weights.
+    start = state0.model.state_dict()
+    assert not torch.equal(model_a["conv1.weight"], start["conv1.weight"])
+    assert not torch.equal(model_a["resnet.bn1.running_mean"], start["resnet.bn1.running_mean"])
+
