@@ -1,6 +1,7 @@
 """Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A, Stage D,
 stitching, the corpus renderer, verifier training, monocular depth, the
-end-to-end accuracy run and the evaluation CLIs on one CUDA card.
+end-to-end accuracy run, the evaluation CLIs and the mesh of ranks on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -201,6 +202,24 @@ Phases:
      `compute_average_zind_stats` and `estimate_completion_percent` over
      phase 11's harness tree: each returns (exit 0) with its summary;
      B1-B3 launch 0 times.
+ 13. more than one rank (salve_tpu_torch/parallel): (a) a world of one over
+     NCCL: `score_floor_hypotheses(mesh=make_mesh())` on phase 3's first
+     512 (warp) and 256 (direct) hypotheses equals phase 3 bit for bit;
+     `cli/test_fused.py --mesh_devices 1` over 96 hypotheses of floor 0000
+     writes the bytes of the run without the flag; 2 ResNet-152 train steps
+     at batch 256 (bf16, phase 9's start state, batch rows and draws) under
+     the training policy through the mesh's step equal the one-card step's
+     bit for bit; (b) a world of two over gloo, both ranks on the one card
+     (NCCL refuses two ranks on one GPU): each rank scores its 16 rows of
+     every batch, equal bit for bit to the one-card scorer at batch 16 over
+     them, the gathered lists equal on both ranks and within the MESH_*
+     bounds of (a) at batch 32 (B1-B3 launched on every rank); 2
+     global-batch train steps (2 x 128) from (a)'s start state, both ranks'
+     states equal, losses, running statistics and parameters within their
+     bounds of (a); (c) B1 and B2 at one rank's 16x501^2 direct-mode batch
+     and B3's pair launch at 2x16 rows in all four rot90 branches, each
+     equal to its plain version, timed beside its bound; the phase's
+     seconds.
 
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -314,6 +333,27 @@ E2E_VERIFIER_KEYS = sorted([
 E2E_REPORT_KEYS = sorted([
     "building_id", "floor_id", "avg_abs_rot_err_deg", "avg_abs_trans_err", "percent_panos_localized",
     "floorplan_iou", "percent_in_top2_ccs", "percent_in_top3_ccs"])
+# Phase 13: more than one rank. The world of one (NCCL) and the world of two
+# (gloo, both ranks on the one card) score phase 3's first hypotheses; the
+# CLI scores a prefix of floor 0000's; train steps at the released batch.
+MESH_SCORED = {"warp": 512, "direct": 256}
+MESH_CLI_HYPS = 96
+MESH_TRAIN_BATCH = 256
+MESH_TRAIN_STEPS = 2
+MESH_RANK_BATCH = 16
+# The world of two against the world of one, in bf16 through ResNet-152:
+# the class-1 probability within 2^-10 (each rank runs the one-card program
+# at half the batch: cuDNN may pick other bf16 algorithms), labels equal
+# where it is clear of 0.5 by that much; for the train steps the bf16 levels
+# of tests/test_torch_training.py:test_bf16_bottleneck_step_matches_salve_tpu:
+# losses within 2^-6 of their size, running statistics within 2^-5 of their
+# tensor's largest magnitude; parameters within 4 lr (each Adam step moves a
+# parameter by up to about lr, in either direction where its gradient is
+# tiny).
+MESH_PROB_BOUND = 2.0 ** -10
+MESH_LOSS_BOUND = 2.0 ** -6
+MESH_STATS_BOUND = 2.0 ** -5
+MESH_PARAM_BOUND = 4e-3
 
 REPLACES = {
     "splat": "salve_tpu/ops/pallas_splat.py:77",
@@ -528,7 +568,7 @@ def run(dev) -> dict:
                            render_cfg, use_warp_renders=True, device=dev)
     torch.cuda.synchronize()
 
-    runs = {}
+    runs, scored = {}, {}
     for mode, warp_on, hs in (("warp", True, hyps), ("direct", False, hyps[:N_DIRECT_HYPS])):
         device_mod.reset_launch_counts()
         torch.cuda.synchronize()
@@ -545,6 +585,7 @@ def run(dev) -> dict:
                 raise AssertionError(f"{mode}: bad result {r}")
         runs[mode] = {"hypotheses": len(hs), "seconds": secs, "hyp_per_s": len(hs) / secs,
                       "launches": counts}
+        scored[mode] = scored_rows(res)
         log(f"phase 3: {mode} mode scored {len(hs)} hypotheses in {secs:.3f} s "
             f"({len(hs) / secs:.1f} hyp/s), launches {counts}, "
             f"y_hat=1 share {np.mean([r.y_hat for r in res]):.3f}")
@@ -580,20 +621,8 @@ def run(dev) -> dict:
                                                     "bound_by", "l2_bound_ms", "dsmem_bound_ms")}
     k["splat"]["extra"] = {"by_shape": b1, "blocks": report["b1_blocks"]}
 
-    def fill_row(args):
-        cells = args[0].shape[0] * args[0].shape[1] * args[0].shape[2]
-        f_bytes, f_ops = cells * 26 / HBM_BYTES_PER_S, cells * FILL_OPS_PER_CELL / FP32_OPS_PER_S
-        return {
-            "shape": "x".join(str(x) for x in args[0].shape),
-            "ms": time_ms(lambda: fill.fill_and_mask(*args)),
-            "plain_ms": time_ms(lambda: fill.fill_and_mask_plain(*args)),
-            "library_ms": None,
-            "bound_ms": max(f_bytes, f_ops) * 1e3,
-            "bound_by": "bytes" if f_bytes >= f_ops else "operations",
-        }
-
-    k["fill"] = fill_row(timing_inputs[bank_px])
-    k["fill"]["extra"] = {"direct_batch": fill_row(timing_inputs["direct"])}
+    k["fill"] = fill_row(fill, timing_inputs[bank_px])
+    k["fill"]["extra"] = {"direct_batch": fill_row(fill, timing_inputs["direct"])}
     log(f"phase 4: fill at the direct-mode batch {k['fill']['extra']['direct_batch']}")
 
     # B3: one pair launch (ceiling + floor) as score_batch makes it; then per
@@ -636,6 +665,8 @@ def run(dev) -> dict:
         report["depth"] = depth_phase(dev, Path(tmp))
         report["e2e"] = e2e_phase(dev, Path(tmp), Path(tmp) / "depth_net" / "fixed.pt")
         report["evaluation"] = evaluation_phase(dev, Path(tmp), Path(tmp) / "e2e")
+        report["mesh"] = mesh_phase(dev, Path(tmp), Path(tmp) / "corpus" / "warp_card", scored, depths, rgbs, banks,
+                                    render_cfg)
     for name, row in report["kernels"].items():
         row["launches_corpus"] = {arm: report["corpus"][f"{arm}_card"]["launches"][name] for arm in ("warp", "direct")}
         row["launches_depth"] = {"hohonet": report["depth"]["hohonet"]["launches"][name],
@@ -644,6 +675,9 @@ def run(dev) -> dict:
         row["launches_e2e"] = {"harness": report["e2e"]["harness"]["launches"][name],
                                "semantic_render": report["e2e"]["semantics"]["render_launches"][name],
                                "zorder": report["e2e"]["semantics"]["zorder"]["launches"][name]}
+        row["launches_mesh"] = {mode: [launches[name] for launches in report["mesh"]["b"][mode]["launches"]]
+                                for mode in MESH_SCORED}
+        row["extra"]["per_rank"] = report["mesh"]["kernels"][name]
     return report
 
 
@@ -2821,26 +2855,16 @@ def splat_row(lib, splat, cell, key, ok, side: int, dsmem: float, dev) -> dict:
     """B1 at one shape: its time, the plain and library times on the same
     inputs, and its byte, L2-atomic and DSMEM-atomic bounds (`dsmem`: the
     DSMEM atomicMax rate, a second)."""
-    import torch
-
     b, n = cell.shape
     hw = side * side
-    # The library call on equal work: the grid fill and one scatter_reduce_,
-    # rejected points sent to a sentinel cell a row (inputs masked beforehand).
-    lib_idx = torch.where(ok, cell.long(), torch.full_like(cell, hw, dtype=torch.long))
-    lib_src = torch.where(ok, key, torch.full_like(key, -1))
-
-    def library_splat():
-        grid = torch.full((b, hw + 1), -1, dtype=torch.int32, device=dev)
-        return grid.scatter_reduce_(1, lib_idx, lib_src, "amax", include_self=True)
-
+    lib_idx, lib_src = library_splat_inputs(cell, key, ok, hw)
     accepted = int(ok.sum())
     l2 = l2_atomic_rates(lib, b * hw, dev)
     row = {
         "shape": f"{b}x{n} points -> {b}x{side}^2 grid",
         "ms": time_ms(lambda: splat.splat_priority_grid(cell, key, ok, side, side)),
         "plain_ms": time_ms(lambda: splat.splat_priority_grid_plain(cell, key, ok, side, side)),
-        "library_ms": time_ms(library_splat),
+        "library_ms": time_ms(lambda: library_splat(lib_idx, lib_src, b, hw, dev)),
         "bound_ms": (b * n * 9 + b * hw * 4) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "accepted_points": accepted,
@@ -2855,6 +2879,38 @@ def splat_row(lib, splat, cell, key, ok, side: int, dsmem: float, dev) -> dict:
         f"{row['distinct_cells']} cells: L2 atomicMax " + ", ".join(f"{p} {r:.4e}/s" for p, r in l2.items())
         + f" -> {row['l2_bound_ms']:.4f} ms, DSMEM atomicMax {dsmem:.4e}/s -> {row['dsmem_bound_ms']:.4f} ms")
     return row
+
+
+def library_splat_inputs(cell, key, ok, hw: int):
+    """B1's library call's inputs on equal work: rejected points sent to a
+    sentinel cell a row (masked beforehand)."""
+    import torch
+
+    return (torch.where(ok, cell.long(), torch.full_like(cell, hw, dtype=torch.long)),
+            torch.where(ok, key, torch.full_like(key, -1)))
+
+
+def library_splat(lib_idx, lib_src, b: int, hw: int, dev):
+    """B1's library call: the grid fill and one scatter_reduce_."""
+    import torch
+
+    grid = torch.full((b, hw + 1), -1, dtype=torch.int32, device=dev)
+    return grid.scatter_reduce_(1, lib_idx, lib_src, "amax", include_self=True)
+
+
+def fill_row(fill, args) -> dict:
+    """B2 on (sparse, occupied, support): its time, the plain version's and
+    its bound (bytes or operations, whichever is larger)."""
+    cells = args[0].shape[0] * args[0].shape[1] * args[0].shape[2]
+    f_bytes, f_ops = cells * 26 / HBM_BYTES_PER_S, cells * FILL_OPS_PER_CELL / FP32_OPS_PER_S
+    return {
+        "shape": "x".join(str(x) for x in args[0].shape),
+        "ms": time_ms(lambda: fill.fill_and_mask(*args)),
+        "plain_ms": time_ms(lambda: fill.fill_and_mask_plain(*args)),
+        "library_ms": None,
+        "bound_ms": max(f_bytes, f_ops) * 1e3,
+        "bound_by": "bytes" if f_bytes >= f_ops else "operations",
+    }
 
 
 def dsmem_atomic_rate(lib) -> float:
@@ -3049,6 +3105,343 @@ def check_small_input(dev) -> None:
         raise AssertionError("the card's path disagrees with the plain CPU path on a small input")
 
 
+def per_rank_kernels(dev, depths, rgbs, banks, render_cfg, n_panos: int) -> dict:
+    """Phase 13(c): B1, B2 and B3 at the shapes one rank of a mesh of 2
+    gives them (half of the 32-hypothesis batch), each held against its
+    plain version and timed beside its bound."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch.ops import bev, fill, splat, warp
+
+    k = MESH_RANK_BATCH
+    img_px, mpp = render_cfg.img_px, render_cfg.meters_per_px
+    side = img_px + 1
+    rng = np.random.default_rng(13)
+    xyz, c, v = direct_batch_clouds(rng, depths, rgbs, k, render_cfg)
+    cell, key, ok = splat_keys_at(bev, splat, xyz, c, v, img_px, mpp)
+    got, ref = splat.splat_priority_grid(cell, key, ok, side, side), splat.splat_priority_grid_plain(cell, key, ok,
+                                                                                                     side, side)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"phase 13: B1 disagrees with its plain version at {k}x{side}^2")
+    lib_idx, lib_src = library_splat_inputs(cell, key, ok, side * side)
+    out = {"splat": {
+        "shape": f"{k}x{cell.shape[1]} points -> {k}x{side}^2 grid (one rank's direct-mode batch)",
+        "max_abs_err": max_abs_diff(got, ref),
+        "ms": time_ms(lambda: splat.splat_priority_grid(cell, key, ok, side, side)),
+        "plain_ms": time_ms(lambda: splat.splat_priority_grid_plain(cell, key, ok, side, side)),
+        "library_ms": time_ms(lambda: library_splat(lib_idx, lib_src, k, side * side, dev)),
+        "bound_ms": (k * cell.shape[1] * 9 + k * side * side * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }}
+    args = fill_inputs(bev, splat, xyz, c, v, img_px, mpp)
+    got, ref = fill.fill_and_mask(*args), fill.fill_and_mask_plain(*args)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"phase 13: B2 disagrees with its plain version at {k}x{side}^2")
+    out["fill"] = dict(fill_row(fill, args), shape=f"{k}x{side}^2x3 (one rank's direct-mode batch)",
+                       max_abs_err=max_abs_diff(got, ref))
+    R, t, idx = random_hypotheses(rng, k, n_panos, dev, branches=np.arange(k) % 4)
+    params = warp.shear_warp_params(R, t, banks[0].shape[1], img_px, mpp)
+    got = warp.warp_banks_auto(banks, R, t, img_px, mpp, bank_idx=idx)
+    err = 0.0
+    for g, bank in zip(got, banks):
+        ref = warp.shear_warp_plain(bank, idx, params)
+        if not torch.equal(g, ref):
+            raise AssertionError(f"phase 13: B3 disagrees with its plain version at 2x{k} rows")
+        err = max(err, max_abs_diff(g, ref))
+    branches = [int(x) for x in np.bincount(params.n.cpu().numpy(), minlength=4)]
+    if min(branches) == 0:
+        raise AssertionError(f"phase 13: rot90 branches {branches}: one is empty")
+    out["warp"] = {
+        "shape": f"2 banks x {k} rows of {banks[0].shape[1]}^2 -> 2x{k}x{params.d}^2x3 (one rank's batch), "
+                 f"rot90 branches {branches}",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: warp.shear_warp_cuda(banks, idx, params)),
+        "plain_ms": time_ms(lambda: [warp.shear_warp_plain(bk, idx, params) for bk in banks]),
+        "library_ms": None, "bound_ms": sum(warp_bound_ms(warp, bk, idx, params) for bk in banks),
+        "bound_by": "bytes",
+    }
+    card = card_line()
+    for name, row in out.items():
+        row["card"] = card
+        log(f"phase 13: {name} at {row['shape']}: equal to its plain version (max |diff| {row['max_abs_err']}); "
+            f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, library {row['library_ms']}, bound "
+            f"{row['bound_ms']:.4f} by {row['bound_by']})")
+    return out
+
+
+def scored_rows(results) -> list:
+    return [(r.y_hat, r.prob) for r in results]
+
+
+def mesh_training_setup(dev, corpus: Path):
+    """The released config on phase 8's corpus, one batch of MESH_TRAIN_BATCH
+    of its train split (rows as phase 9 draws them) and phase 9's start state."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch.dataset.bev_pairs import BEVPairDataset
+    from salve_tpu_torch.training import train as train_lib
+    from salve_tpu_torch.training.config import load_training_config
+
+    repo = Path(__file__).resolve().parent
+    base = dataclasses.replace(load_training_config(str(repo / TRAIN_CONFIG)), data_root=str(corpus),
+                               split_overrides=dict(TRAIN_SPLITS), batch_size=MESH_TRAIN_BATCH)
+    train_ds = BEVPairDataset("train", base, workers=base.workers)
+    rows = np.random.default_rng(0).permutation(len(train_ds))[:MESH_TRAIN_BATCH]
+    imgs = torch.from_numpy(train_ds._load_tuples([train_ds.data_list[r] for r in rows]))
+    labels = torch.as_tensor(np.array([train_ds.data_list[r][-1] for r in rows]))
+    state = train_lib.create_train_state(base, torch.Generator().manual_seed(4), 100, dev)
+    return base, imgs, labels, state
+
+
+def mesh_train_steps(state, step, imgs, labels):
+    """MESH_TRAIN_STEPS steps from `state` under the training policy, drawing
+    from one generator (seed 5, as phase 9); returns (state, losses)."""
+    import torch
+
+    from salve_tpu_torch.device import deterministic_algorithms
+
+    gen = torch.Generator().manual_seed(5)
+    losses = []
+    with deterministic_algorithms():
+        for _ in range(MESH_TRAIN_STEPS):
+            state, m = step(state, imgs, labels, gen)
+            losses.append(float(m["loss"]))
+    return state, losses
+
+
+def mesh_rank(payload: dict) -> dict:
+    """Phase 13(b), one rank of a gloo mesh of 2 on the one card: the
+    scorer over this rank's rows (and the one-card scorer on them at the
+    per-rank batch), then MESH_TRAIN_STEPS global-batch train steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.dataset.synthetic_bank import make_synthetic_pano_bank
+    from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet
+    from salve_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from salve_tpu_torch.pipeline.fused_inference import score_floor_hypotheses
+    from salve_tpu_torch.rendering.bev_pair import BEVRenderConfig
+    from salve_tpu_torch.training import train as train_lib
+    from salve_tpu_torch.training.config import TrainingConfig
+
+    mesh = make_mesh()
+    dev = mesh.device
+    out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend}
+    depths, rgbs = make_synthetic_pano_bank(payload["n_panos"], 512, 1024, seed=0)
+    cfg = TrainingConfig(**payload["score_cfg"])
+    render_cfg = BEVRenderConfig(img_px=payload["img_px"])
+    torch.manual_seed(0)
+    model = EarlyFusionCEResnet(num_layers=cfg.num_layers, compute_dtype=cfg.compute_dtype)
+    hyps = make_hypotheses(N_WARP_HYPS, seed=2, n_panos=payload["n_panos"])
+    id2row = {p: p for p in range(payload["n_panos"])}
+    b = cfg.batch_size
+    for mode, n in MESH_SCORED.items():
+        hs = hyps[:n]
+        device_mod.reset_launch_counts()
+        res = score_floor_hypotheses(model, cfg, depths, rgbs, id2row, hs, b, render_cfg,
+                                     use_warp_renders=(mode == "warp"), mesh=mesh)
+        torch.cuda.synchronize()
+        launches = device_mod.launch_counts()
+        mine = []
+        for s in range(0, n, b):
+            mine += shard_batch(mesh, hs[s : s + b])
+        own = score_floor_hypotheses(model, cfg, depths, rgbs, id2row, mine, b // mesh.size, render_cfg,
+                                     use_warp_renders=(mode == "warp"), device=dev)
+        out[mode] = {"results": scored_rows(res), "own_rows": scored_rows(own), "launches": launches}
+    del model
+    torch.cuda.empty_cache()
+
+    base = TrainingConfig(**payload["train_cfg"])
+    state = train_lib.create_train_state(base, torch.Generator().manual_seed(4), 100, dev)
+    state.model.load_state_dict(torch.load(payload["state0"], weights_only=True))
+    batch = torch.load(payload["batch"], weights_only=True)
+    imgs, labels = shard_batch(mesh, (batch["imgs"].to(dev), batch["labels"].to(dev)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = mesh_train_steps(state, train_lib.make_train_step(base, mesh), imgs, labels)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["losses"] = losses
+    ref = torch.load(payload["state_a"], weights_only=True)
+    got = state.model.state_dict()
+    digest = hashlib.sha256()
+    stats_rel, param_abs, param_abs_large_grad = 0.0, 0.0, 0.0
+    grads = {n: p.grad for n, p in state.model.named_parameters()}
+    for name in sorted(got):
+        t = got[name].detach().cpu()
+        digest.update(t.numpy().tobytes())
+        diff = (t.double() - ref[name].double()).abs()
+        if "running" in name:
+            stats_rel = max(stats_rel, float(diff.max()) / (float(ref[name].abs().max()) or 1.0))
+        elif name in grads:
+            param_abs = max(param_abs, float(diff.max()))
+            # Where the last step's gradient is large (as
+            # tests/test_torch_training.py:_compare_step selects), Adam's steps
+            # follow the gradients' relative difference, not their sign.
+            g = grads[name].detach().abs().cpu()
+            large = g > 1e-3 * g.max()
+            if large.any():
+                param_abs_large_grad = max(param_abs_large_grad, float(diff[large].max()))
+    out.update(state_sha256=digest.hexdigest(), stats_rel=stats_rel, param_abs=param_abs,
+               param_abs_large_grad=param_abs_large_grad)
+    return out
+
+
+def mesh_phase(dev, root: Path, corpus: Path, scored: dict, depths, rgbs, banks, render_cfg) -> dict:
+    """Phase 13: more than one rank (module docstring)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from salve_tpu_torch.cli import test_fused
+    from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet
+    from salve_tpu_torch.parallel.mesh import launch, make_mesh
+    from salve_tpu_torch.pipeline.fused_inference import score_floor_hypotheses
+    from salve_tpu_torch.training import train as train_lib
+    from salve_tpu_torch.training.config import TrainingConfig
+
+    t_phase = time.perf_counter()
+    n_panos = depths.shape[0]
+    out = {}
+    score_cfg = dict(num_layers=152, resize_h=234, resize_w=234, train_h=224, train_w=224, batch_size=32,
+                     compute_dtype="bfloat16")
+    cfg = TrainingConfig(**score_cfg)
+    depths_np, rgbs_np = depths.cpu().numpy(), rgbs.cpu().numpy()
+    hyps = make_hypotheses(N_WARP_HYPS, seed=2, n_panos=n_panos)
+    torch.manual_seed(0)
+    model = EarlyFusionCEResnet(num_layers=cfg.num_layers, compute_dtype=cfg.compute_dtype)
+
+    # (a) A world of one over NCCL, through the entry points.
+    store = root / "nccl_store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        if (mesh.size, mesh.backend) != (1, "nccl"):
+            raise AssertionError(f"phase 13: a world of {mesh.size} over {mesh.backend}")
+        a = {}
+        for mode, n in MESH_SCORED.items():
+            res = score_floor_hypotheses(model, cfg, depths_np, rgbs_np, {p: p for p in range(n_panos)}, hyps[:n],
+                                         cfg.batch_size, render_cfg, use_warp_renders=(mode == "warp"), mesh=mesh)
+            a[mode] = scored_rows(res)
+            if a[mode] != scored[mode][:n]:
+                raise AssertionError(f"phase 13: the world of one's {mode} scores differ from phase 3's")
+        log(f"phase 13: (a) a world of one over NCCL: score_floor_hypotheses(mesh=make_mesh()) equals phase 3 bit "
+            f"for bit over {MESH_SCORED} hypotheses")
+        # The CLI with --mesh_devices 1 against the run without the flag.
+        hyp_root = root / "hyp_mesh"
+        subset_hypotheses(root / "hyp", hyp_root, CORPUS_FLOORS[0], MESH_CLI_HYPS)
+        ckpt = root / "mesh_model.pt"
+        torch.save(model.state_dict(), ckpt)
+        argv = ["--hypotheses_save_root", str(hyp_root), "--raw_dataset_dir", str(root / "zind"),
+                "--depth_save_root", str(root / "depth"), "--ckpt_fpath", str(ckpt)]
+        trees = {}
+        for tag, extra in (("without", []), ("mesh_devices_1", ["--mesh_devices", "1"])):
+            test_fused.main(argv + ["--serialization_save_dir", str(root / f"preds_{tag}")] + extra)
+            trees[tag] = file_tree(root / f"preds_{tag}")
+        if trees["without"] != trees["mesh_devices_1"] or not trees["without"]:
+            raise AssertionError("phase 13: test_fused --mesh_devices 1 wrote other files than the run without it")
+        log(f"phase 13: (a) test_fused --mesh_devices 1 over {MESH_CLI_HYPS} hypotheses of floor {CORPUS_FLOORS[0]}: "
+            f"{len(trees['without'])} batch files, equal byte for byte to the run without the flag")
+        # Training steps: the mesh's step on a world of one against the one-card step.
+        base, imgs, labels, state0 = mesh_training_setup(dev, corpus)
+        imgs_d, labels_d = imgs.to(dev), labels.to(dev)
+        runs = {}
+        for tag, step in (("one_card", train_lib.make_train_step(base)),
+                          ("mesh_1", train_lib.make_train_step(base, mesh))):
+            state, losses = mesh_train_steps(copy.deepcopy(state0), step, imgs_d, labels_d)
+            runs[tag] = (state_bits(state), losses)
+            if tag == "one_card":
+                torch.save({k: v.detach().cpu() for k, v in state.model.state_dict().items()}, root / "state_a.pt")
+            del state
+        unequal = [k for k in runs["one_card"][0] if not torch.equal(runs["one_card"][0][k], runs["mesh_1"][0][k])]
+        out["a"] = {"scored": MESH_SCORED, "cli_files": len(trees["without"]), "losses": runs["one_card"][1],
+                    "train_tensors": len(runs["one_card"][0]), "train_unequal": len(unequal)}
+        log(f"phase 13: (a) {MESH_TRAIN_STEPS} train steps at batch {MESH_TRAIN_BATCH} (ResNet-152, bf16) under the "
+            f"policy, mesh_shape (1,) against the one-card step: {len(runs['one_card'][0])} tensors, "
+            f"{len(unequal)} unequal; losses {runs['one_card'][1]}")
+        if unequal:
+            raise AssertionError(f"phase 13: the world of one's train steps differ in {unequal[:6]}")
+        torch.save({k: v.detach().cpu() for k, v in state0.model.state_dict().items()}, root / "state0.pt")
+        torch.save({"imgs": imgs, "labels": labels}, root / "mesh_batch.pt")
+        del runs, state0, imgs_d
+    finally:
+        dist.destroy_process_group()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) A world of two over gloo, both ranks on the one card.
+    t0 = time.perf_counter()
+    payload = {"n_panos": n_panos, "score_cfg": score_cfg, "img_px": render_cfg.img_px,
+               "train_cfg": {f: getattr(base, f) for f in base.__dataclass_fields__},
+               "state0": str(root / "state0.pt"), "batch": str(root / "mesh_batch.pt"),
+               "state_a": str(root / "state_a.pt")}
+    ranks = launch(mesh_rank, 2, payload, device=dev, backend="gloo", device_ids=[0, 0])
+    secs_b = time.perf_counter() - t0
+    b_out = {"seconds": secs_b, "ranks": [{k: r[k] for k in ("device", "backend", "train_s", "peak_memory_gb",
+                                                             "losses", "stats_rel", "param_abs")} for r in ranks]}
+    k = cfg.batch_size // 2
+    for mode, n in MESH_SCORED.items():
+        full = ranks[0][mode]["results"]
+        if full != ranks[1][mode]["results"] or len(full) != n:
+            raise AssertionError(f"phase 13: (b) the ranks' {mode} lists differ")
+        for r in ranks:
+            own = [row for s in range(0, n, cfg.batch_size) for row in full[s : s + cfg.batch_size][
+                r["rank"] * k : (r["rank"] + 1) * k]]
+            if r[mode]["own_rows"] != own:
+                raise AssertionError(f"phase 13: (b) rank {r['rank']}'s {mode} rows differ from the one-card scorer "
+                                     f"at batch {k} over them")
+            needed = ("splat", "fill", "warp") if mode == "warp" else ("splat", "fill")
+            if any(r[mode]["launches"][name] == 0 for name in needed):
+                raise AssertionError(f"phase 13: (b) rank {r['rank']} {mode} launches {r[mode]['launches']}")
+        ref = scored[mode][:n]
+        p1 = np.array([p if y == 1 else 1.0 - p for y, p in full])
+        p1_ref = np.array([p if y == 1 else 1.0 - p for y, p in ref])
+        diff = float(np.abs(p1 - p1_ref).max())
+        clear = np.abs(p1_ref - 0.5) > MESH_PROB_BOUND
+        flips = int(sum(g[0] != r_[0] for g, r_ in zip(full, ref)))
+        b_out[mode] = {"prob_max_abs_diff": diff, "y_hat_flips": flips, "clear_of_half": int(clear.sum()),
+                       "launches": [r[mode]["launches"] for r in ranks]}
+        log(f"phase 13: (b) {mode} mode, {n} hypotheses over 2 gloo ranks on one card: each rank's rows equal the "
+            f"one-card scorer at batch {k} bit for bit; against the world of one at batch {cfg.batch_size}: y_hat "
+            f"flips {flips} ({int(clear.sum())} of {n} clear of 0.5 by {MESH_PROB_BOUND}), class-1 prob max |diff| "
+            f"{diff:.3e}; launches a rank {[r[mode]['launches'] for r in ranks]}")
+        if diff > MESH_PROB_BOUND or not np.array_equal((p1 > 0.5)[clear], (p1_ref > 0.5)[clear]):
+            raise AssertionError(f"phase 13: (b) {mode} scores beyond the bound of the world of one")
+    if ranks[0]["state_sha256"] != ranks[1]["state_sha256"]:
+        raise AssertionError("phase 13: (b) the two ranks' train states differ")
+    la = np.array(out["a"]["losses"])
+    lb = np.array(ranks[0]["losses"])
+    loss_rel = float(np.abs(lb - la).max() / np.abs(la).max())
+    stats_rel, param_abs, param_large = (ranks[0][k] for k in ("stats_rel", "param_abs", "param_abs_large_grad"))
+    b_out.update(loss_rel=loss_rel, stats_rel=stats_rel, param_abs=param_abs, param_abs_large_grad=param_large)
+    log(f"phase 13: (b) {MESH_TRAIN_STEPS} global-batch train steps at {MESH_TRAIN_BATCH} (2 x "
+        f"{MESH_TRAIN_BATCH // 2}) against (a): losses {ranks[0]['losses']} vs {out['a']['losses']} (max rel "
+        f"{loss_rel:.3e}, bound {MESH_LOSS_BOUND:.3e}), running statistics max |diff| / max |stat| {stats_rel:.3e} "
+        f"(bound {MESH_STATS_BOUND:.3e}), parameters max |diff| {param_abs:.3e} (bound {MESH_PARAM_BOUND:.3e}), "
+        f"{param_large:.3e} where the gradient is over 1e-3 of its tensor's largest; "
+        f"both ranks' states equal; per rank {[round(r['train_s'], 3) for r in ranks]} s, peak "
+        f"{[round(r['peak_memory_gb'], 2) for r in ranks]} GB; the whole world of two {secs_b:.1f} s")
+    if loss_rel > MESH_LOSS_BOUND or stats_rel > MESH_STATS_BOUND or param_abs > MESH_PARAM_BOUND:
+        raise AssertionError("phase 13: (b) the world of two's train steps beyond their bounds of (a)")
+    out["b"] = b_out
+
+    # (c) The kernels at one rank's shapes.
+    out["kernels"] = per_rank_kernels(dev, depths, rgbs, banks, render_cfg, n_panos)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13: {card_line()}: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # Deterministic cuBLAS products (the training policy) need this before
     # the process's first cuBLAS call.
@@ -3118,9 +3511,13 @@ def main() -> int:
         f"{ev['eval_floorplan']['ms_cpu']:.1f} ms on the CPU; evaluate_sfm_baseline " + "; ".join(
             f"{alg} {row['ms_card']:.1f} / {row['ms_cpu']:.1f} ms" for alg, row in ev["sfm"].items())
         + " a floor, card / CPU")
+    ms = report["mesh"]
+    log(f"throughput: phase 13, a world of two on one card: {ms['b']['seconds']:.1f} s for both ranks' scoring and "
+        f"{MESH_TRAIN_STEPS} train steps (per rank " + ", ".join(f"{r['train_s']:.3f}" for r in ms["b"]["ranks"])
+        + f" s of steps); the phase {ms['seconds']:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
-            "launches_corpus", "launches_depth", "launches_e2e", "shape",
+            "launches_corpus", "launches_depth", "launches_e2e", "launches_mesh", "shape",
             "extra")
     rows = [{kk: row.get(kk) for kk in keys} for row in report["kernels"].values()]
     print(json.dumps({"kernels": rows}), flush=True)

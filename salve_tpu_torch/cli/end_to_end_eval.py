@@ -21,7 +21,10 @@ Plots are not drawn: Stage D serializes poses only.
 Stage C's training and scoring, the calibration's included, run under
 `device.deterministic_algorithms()` (in `train()` and `evaluate()`), and
 `main` sets cuBLAS's workspace for it: one seed gives the same checkpoint and
-probabilities on every run.
+probabilities on every run. Stage C's config leaves `mesh_shape` None, as
+salve_tpu's does: the whole world, which is one process here. The harness
+writes every stage's files from one process, so it refuses to run inside a
+process group of more than one.
 
     python -m salve_tpu_torch.cli.end_to_end_eval --src_zind_dir ZIND --output_dir OUT \\
         --procedural_val_buildings 1 --calibrate_on_val [--device cpu]
@@ -280,6 +283,10 @@ def run_end_to_end_eval(args: argparse.Namespace) -> dict:
         raise UsageError("--num_epochs 0 is eval-only: pass the checkpoint to score via --finetune_ckpt or "
                          "--resume_ckpt")
     dev = resolve_device(args.device)
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        raise UsageError("end_to_end_eval runs as one process; it writes every stage's files itself")
     t_start = time.time()
     out = Path(args.output_dir)
     raw_dir, depth_root = out / "zind", out / "depth"

@@ -11,11 +11,17 @@ training checkpoint `train_ckpt.pt`, or a state_dict of the port's model saved
 with `torch.save` (`.pt`). The
 parser is the standard library's argparse (`main(argv)`), with the JAX
 package's flags.
+
+`--mesh_devices N` shards every batch over N ranks, one card each
+(parallel/mesh.py): run alone, the CLI starts the N ranks itself (gloo
+ranks on the CPU with `--device cpu`); inside a process group of N (for
+example under torchrun) it joins it. Rank 0 writes the files.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import logging
@@ -62,19 +68,24 @@ def score_building_fused(
     render_cfg=None,
     use_warp_renders=None,
     device=None,
+    mesh=None,
 ) -> int:
     """Score every hypothesis of one building; write batch_{i}.json files.
 
-    Returns the number of batch files written.
+    With a mesh every rank scores its rows of each batch and rank 0 writes
+    the files (rank 0 fills a missing depth cache first). Returns the
+    number of batch files written.
     """
     from salve_tpu_torch.common.alignment_hypothesis import AlignmentHypothesis
     from salve_tpu_torch.depth.cache import infer_depth_if_nonexistent
     from salve_tpu_torch.device import resolve_device
     from salve_tpu_torch.geometry.sim2 import Sim2
+    from salve_tpu_torch.parallel.mesh import main_rank_first
     from salve_tpu_torch.pipeline.fused_inference import score_floor_hypotheses
     from salve_tpu_torch.rendering import bev_pair
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    writes = mesh is None or mesh.is_main
     if render_cfg is None:
         render_cfg = bev_pair.BEVRenderConfig()
 
@@ -126,14 +137,15 @@ def score_building_fused(
 
         pano_ids = sorted(needed)
         id2row = {pid: k for k, pid in enumerate(pano_ids)}
-        depths = np.stack(
-            [
-                bev_pair.load_depth_mm(
-                    infer_depth_if_nonexistent(depth_save_root, building_id, img_fpaths_dict[pid])
-                )
-                for pid in pano_ids
-            ]
-        )
+        with contextlib.nullcontext() if mesh is None else main_rank_first(mesh):
+            depths = np.stack(
+                [
+                    bev_pair.load_depth_mm(
+                        infer_depth_if_nonexistent(depth_save_root, building_id, img_fpaths_dict[pid])
+                    )
+                    for pid in pano_ids
+                ]
+            )
         rgbs = np.stack(
             [bev_pair.load_pano_rgb(img_fpaths_dict[pid]) for pid in pano_ids]
         ).astype(np.float32)
@@ -142,7 +154,7 @@ def score_building_fused(
         results = score_floor_hypotheses(
             model, cfg, depths, rgbs, id2row, hyps,
             batch_size=batch_size, render_cfg=render_cfg,
-            use_warp_renders=use_warp_renders, device=dev,
+            use_warp_renders=use_warp_renders, device=dev, mesh=mesh,
         )
         elapsed = max(time.time() - t0, 1e-9)
         logger.info(
@@ -153,16 +165,17 @@ def score_building_fused(
         for start in range(0, len(results), batch_size):
             rs = results[start : start + batch_size]
             ms = meta[start : start + batch_size]
-            _save_json_file(
-                f"{serialization_save_dir}/batch_{start_batch_idx + n_written}.json",
-                {
-                    "y_hat": [r.y_hat for r in rs],
-                    "y_true": [m[2] for m in ms],
-                    "y_hat_probs": [r.prob for r in rs],
-                    "fp0": [m[0] for m in ms],
-                    "fp1": [m[1] for m in ms],
-                },
-            )
+            if writes:
+                _save_json_file(
+                    f"{serialization_save_dir}/batch_{start_batch_idx + n_written}.json",
+                    {
+                        "y_hat": [r.y_hat for r in rs],
+                        "y_true": [m[2] for m in ms],
+                        "y_hat_probs": [r.prob for r in rs],
+                        "fp0": [m[0] for m in ms],
+                        "fp1": [m[1] for m in ms],
+                    },
+                )
             n_written += 1
     return n_written
 
@@ -199,6 +212,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resize_px", type=int, default=234)
     p.add_argument("--crop_px", type=int, default=224)
     p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--mesh_devices", type=int, default=0,
+                   help="Shard batches over an N-card mesh, one rank a card (0 = single device); run alone, the "
+                        "CLI starts the N ranks (gloo ranks on the CPU with --device cpu).")
     warp = p.add_mutually_exclusive_group()
     warp.add_argument("--use_warp_renders", dest="use_warp_renders", action="store_true", default=None,
                       help="Render pano 1 per hypothesis as a Sim(2) warp of an extended identity bank "
@@ -214,13 +230,36 @@ def main(argv: Optional[List[str]] = None) -> None:
     run_test_fused(**vars(build_parser().parse_args(argv)))
 
 
+def _run_rank(kwargs: dict) -> None:
+    run_test_fused(**kwargs)
+
+
 def run_test_fused(
     hypotheses_save_root, raw_dataset_dir, depth_save_root, ckpt_fpath,
     serialization_save_dir, building_id, num_layers, resize_px, crop_px,
-    batch_size, use_warp_renders, append_pair_difference, device,
+    batch_size, mesh_devices, use_warp_renders, append_pair_difference, device,
 ) -> None:
+    options = dict(locals())
     logging.basicConfig(level=logging.INFO)
+    import torch
+    import torch.distributed as dist
+
+    from salve_tpu_torch.device import resolve_device
+    from salve_tpu_torch.parallel.mesh import launch, make_mesh
     from salve_tpu_torch.training.config import TrainingConfig
+
+    dev = resolve_device(device)
+    mesh = None
+    if mesh_devices > 0:
+        if dev.type == "cuda" and torch.cuda.device_count() < mesh_devices:
+            raise ValueError(f"--mesh_devices {mesh_devices} but only {torch.cuda.device_count()} CUDA card(s) "
+                             "visible")
+        if batch_size % mesh_devices:
+            raise ValueError(f"batch_size {batch_size} not divisible by mesh size {mesh_devices}")
+        if mesh_devices > 1 and not dist.is_initialized():
+            launch(_run_rank, mesh_devices, options, device=dev)
+            return
+        mesh = make_mesh((mesh_devices,), device=dev)
 
     cfg = TrainingConfig(
         num_layers=num_layers,
@@ -244,7 +283,7 @@ def run_test_fused(
             bid, hypotheses_save_root, raw_dataset_dir, depth_save_root,
             model, cfg, serialization_save_dir,
             batch_size=batch_size, start_batch_idx=total,
-            use_warp_renders=use_warp_renders, device=device,
+            use_warp_renders=use_warp_renders, device=dev, mesh=mesh,
         )
     logger.info("wrote %d batch files to %s", total, serialization_save_dir)
 

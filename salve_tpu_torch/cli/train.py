@@ -2,7 +2,11 @@
 
 Takes the same options as the click original, on argparse, plus
 `--device` (default cuda; the CPU only when asked). The YAML config is
-read by the port's own reader (training/config.py).
+read by the port's own reader (training/config.py). A config whose
+`mesh_shape` asks for N > 1 processes trains data-parallel over N cards:
+run alone, the CLI starts the N ranks (parallel/mesh.py:launch; gloo ranks
+on the CPU with `--device cpu`); inside a process group of N (torchrun) it
+joins it.
 
     python -m salve_tpu_torch.cli.train --config_fpath salve_tpu/configs/ceiling_floor_rgb.yaml \\
         --data_root BEV_ROOT --model_save_dirpath OUT
@@ -12,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import math
 from typing import List, Optional
 
 from salve_tpu_torch.cli.args import existing_path
@@ -47,7 +52,29 @@ def main(argv: Optional[List[str]] = None) -> None:
         val = getattr(args, name)
         if val is not None:
             setattr(cfg, name, val)
-    train(cfg, max_batches_per_epoch=args.max_batches_per_epoch, resume_from=args.resume_from, device=args.device)
+    kwargs = dict(max_batches_per_epoch=args.max_batches_per_epoch, resume_from=args.resume_from, device=args.device)
+    n = math.prod(cfg.mesh_shape) if cfg.mesh_shape is not None else 1
+    if n > 1:
+        import torch
+        import torch.distributed as dist
+
+        from salve_tpu_torch.device import resolve_device
+        from salve_tpu_torch.parallel.mesh import launch
+
+        if not dist.is_initialized():
+            dev = resolve_device(args.device)
+            if dev.type == "cuda" and torch.cuda.device_count() < n:
+                raise ValueError(f"mesh_shape {tuple(cfg.mesh_shape)} but only {torch.cuda.device_count()} CUDA "
+                                 "card(s) visible")
+            launch(_train_rank, n, cfg, kwargs, device=dev)
+            return
+    train(cfg, **kwargs)
+
+
+def _train_rank(cfg, kwargs: dict) -> None:
+    from salve_tpu_torch.training.loop import train
+
+    train(cfg, **kwargs)
 
 
 if __name__ == "__main__":

@@ -99,9 +99,21 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def require_cuda_tensor(name: str, t: torch.Tensor, dtype: Optional[torch.dtype] = None) -> None:
-    """Kernel-wrapper input check: a contiguous CUDA tensor of `dtype`."""
+    """Kernel-wrapper input check: a contiguous CUDA tensor of `dtype` on the
+    current device.
+
+    The kernels launch into the current device's context (the C entry points
+    ask `cudaGetDevice`, and B2 caches its residency once a process), so a
+    tensor on another card raises instead of launching there: a process of
+    a mesh calls `torch.cuda.set_device` for its card first
+    (parallel/mesh.py).
+    """
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    current = torch.cuda.current_device()
+    if t.device.index is not None and t.device.index != current:
+        raise ValueError(f"{name} lies on {t.device} but the current device is cuda:{current}: "
+                         "call torch.cuda.set_device for the tensor's card first")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():

@@ -7,13 +7,84 @@ conv1, bottleneck blocks on the 3x3 conv2, a projection shortcut
 through `F.conv2d`/cuDNN, as the JAX package leaves them to XLA.
 
 Batch norm trains as Flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`
-does (salve_tpu/models/resnet.py:98-104), see `FlaxBatchNorm2d`.
+does (salve_tpu/models/resnet.py:98-104), see `FlaxBatchNorm2d`; on a mesh
+of more than one rank, over the global batch (`global_batch_statistics`).
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator, Optional
+
 import torch
 from torch import nn
+
+from salve_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
+
+_DIMS = (0, 2, 3)
+
+
+def _per_channel(t: torch.Tensor) -> torch.Tensor:
+    return t[None, :, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training batch norm over the global batch of a mesh, as Flax computes
+    it for a batch sharded under jit (flax/linen/normalization.py:
+    `_compute_stats` with its fast variance, then `_normalize`).
+
+    Each rank's per-channel mean and mean of squares (float32 at least) are
+    averaged over the equal shards by one all-reduce; var = max(0, E[x^2] -
+    E[x]^2); y = (x - mean) * (rsqrt(var + eps) * scale) + bias in float32,
+    returned in x's dtype. The backward all-reduces the per-channel sums of
+    dy and dy * x_hat, so dx is the derivative of the sum of the ranks'
+    losses; the scale's and bias's gradients stay local and join the
+    parameters' gradient all-reduce.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, mesh: Mesh):
+        ct = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(ct)
+        moments = torch.stack([xf.mean(_DIMS), (xf * xf).mean(_DIMS)])
+        all_reduce_sum(mesh, moments)
+        mean, meansq = moments / mesh.size
+        var = (meansq - mean * mean).clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        out = (xf - _per_channel(mean)) * _per_channel(invstd * weight.to(ct)) + _per_channel(bias.to(ct))
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mesh = mesh
+        ctx.mark_non_differentiable(mean, var)
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        ct = mean.dtype
+        g = dout.to(ct)
+        xhat = (x.to(ct) - _per_channel(mean)) * _per_channel(invstd)
+        sums = torch.stack([g.sum(_DIMS), (g * xhat).sum(_DIMS)])
+        dbias, dweight = sums[0].clone(), sums[1].clone()
+        all_reduce_sum(ctx.mesh, sums)
+        n = ctx.mesh.size * x.numel() // x.shape[1]
+        dx = _per_channel(invstd * weight.to(ct)) * (g - _per_channel(sums[0] / n) - xhat * _per_channel(sums[1] / n))
+        return dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(weight.dtype), None, None
+
+
+@contextlib.contextmanager
+def global_batch_statistics(model: nn.Module, mesh: Optional[Mesh]) -> Iterator[None]:
+    """Inside the block, every `FlaxBatchNorm2d` of `model` in training mode
+    normalizes with the statistics of the global batch over `mesh` (each
+    rank holding its equal shard), as salve_tpu's jitted step does for a
+    sharded batch. A mesh of one (or None) changes nothing."""
+    bns = [m for m in model.modules() if isinstance(m, FlaxBatchNorm2d)]
+    for m in bns:
+        m.mesh = mesh if mesh is not None and mesh.size > 1 else None
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.mesh = None
 
 # (block type, stage sizes, feature dim) per depth.
 RESNET_SPECS = {
@@ -41,19 +112,28 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     float64 in a model cast with `.double()`). The running variance comes
     from the normalizer's own
     1 / sqrt(var + eps), so no second pass reads the activation.
+
+    With `mesh` set (`global_batch_statistics`), the batch is the global
+    batch of the mesh's ranks (`_GlobalBatchNorm`), for the normalization
+    and for the running statistics.
     """
 
     def __init__(self, c: int) -> None:
         super().__init__(c, eps=1e-5, momentum=0.1)
+        self.mesh: Optional[Mesh] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self.mesh is not None:
+            out, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, self.mesh)
+        else:
+            out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            with torch.no_grad():
+                var = invstd.double().pow(-2).sub(self.eps).clamp_min(0.0)
         with torch.no_grad():
-            var = invstd.double().pow(-2).sub(self.eps).clamp_min(0.0).to(self.running_var.dtype)
             self.running_mean.mul_(0.9).add_(mean.to(self.running_mean.dtype) * 0.1)
-            self.running_var.mul_(0.9).add_(var * 0.1)
+            self.running_var.mul_(0.9).add_(var.to(self.running_var.dtype) * 0.1)
             self.num_batches_tracked.add_(1)
         return out
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -76,6 +77,21 @@ def backproject_depth(
     z = xyz[..., 2]
     valid = (z > z_range[0]) & (z <= z_range[1])
     return xyz, colors, valid
+
+
+def resize_pano_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Nearest-neighbour resize of the first two axes (semantic label maps),
+    as jax.image.resize(method="nearest"): output sample i of an axis of m
+    source samples reads floor(((i + 0.5) * m) / n) computed in float32
+    (half-pixel centres: torch's "nearest-exact" rule in JAX's arithmetic);
+    any dtype, on the tensor's device."""
+    for dim, n in ((0, out_h), (1, out_w)):
+        m = img.shape[dim]
+        if m == n:
+            continue
+        pos = (np.arange(n, dtype=np.float32) + np.float32(0.5)) * np.float32(m) / np.float32(n)
+        img = img.index_select(dim, torch.as_tensor(np.floor(pos).astype(np.int64), device=img.device))
+    return img
 
 
 def resize_pano_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -99,7 +99,7 @@ def fill_and_mask_cuda(
     lib = kernels.load().lib
     err = lib.salve_fill_mask(
         sparse.data_ptr(), occupied.data_ptr(), support.data_ptr(), out.data_ptr(),
-        b, h, w, kernels.stream_handle(),
+        b, h, w, kernels.stream_handle(sparse.device),
     )
     kernels.check(err, "fill")
     device_mod.LAUNCHES["fill"] += 1

@@ -151,5 +151,7 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream_handle(device: Optional[torch.device] = None) -> int:
+    """The current stream of `device` (a kernel's tensors' card; None: the
+    current device)."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -54,7 +54,7 @@ def splat_priority_grid_cuda(
     lib = kernels.load().lib
     err = lib.salve_splat_max(
         cell.data_ptr(), key.data_ptr(), ok.data_ptr(), grid.data_ptr(),
-        b, n, hw, kernels.stream_handle(),
+        b, n, hw, kernels.stream_handle(cell.device),
     )
     kernels.check(err, "splat")
     device_mod.LAUNCHES["splat"] += 1

@@ -374,7 +374,7 @@ def shear_warp_cuda(banks, bank_idx: torch.Tensor, p: ShearParams):
         bank.data_ptr(), second.data_ptr(), bank_idx.data_ptr(), p.n.data_ptr(),
         p.row0.data_ptr(), p.starts1.data_ptr(), p.starts2.data_ptr(), p.starts3.data_ptr(),
         outs[0].data_ptr(), outs[-1].data_ptr(), len(banks),
-        b, bank.shape[0], s, p.d, p.x3, p.y2, kernels.stream_handle(),
+        b, bank.shape[0], s, p.d, p.x3, p.y2, kernels.stream_handle(bank.device),
     )
     kernels.check(err, "warp")
     device_mod.LAUNCHES["warp"] += 1

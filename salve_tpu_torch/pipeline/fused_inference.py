@@ -10,6 +10,12 @@ record Stage D consumes.
 Kernels on this path: B1 (splat) and B2 (fill + mask) for the identity and
 warp banks, and in warp mode B3 (shear warp), one launch a batch for the
 ceiling and the floor; B1 and B2 per hypothesis in direct mode.
+
+On a mesh of N ranks (parallel/mesh.py; salve_tpu's shard_map scorer,
+`make_fused_score_fn_sharded`) every rank renders the floor's banks itself,
+scores its batch_size / N rows of each padded batch with the unmodified
+one-card body, and the (y_hat, prob) of each batch are all-gathered, so
+every rank returns the whole ordered list. No other collective runs.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from salve_tpu_torch.device import DeviceLike, resolve_device
 from salve_tpu_torch.ops.backproject import CEILING_Z_RANGE, FLOOR_Z_RANGE
+from salve_tpu_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
 from salve_tpu_torch.rendering.bev_pair import (
     BEVRenderConfig,
     HOHO_S_ZIND_SCALE_FACTOR,
@@ -120,6 +127,7 @@ def score_floor_hypotheses(
     render_cfg: BEVRenderConfig = BEVRenderConfig(),
     use_warp_renders: Optional[bool] = None,
     device: DeviceLike = None,
+    mesh: Optional[Mesh] = None,
 ) -> List[ScoredHypothesis]:
     """Score every (i1, i2, AlignmentHypothesis) of a floor.
 
@@ -129,16 +137,20 @@ def score_floor_hypotheses(
         depths: (P, 512, 1024) depth bank in mm; rgbs: (P, 512, 1024, 3) in [0, 1].
         pano_id_to_bank_row: pano ID -> bank row.
         hypotheses: (i1, i2, AlignmentHypothesis) triples.
-        batch_size: hypotheses per batch; the last batch is padded with its
-            last hypothesis.
+        batch_size: hypotheses per batch (global across the mesh); the last
+            batch is padded with its last hypothesis.
         use_warp_renders: render pano 1 per hypothesis as a Sim(2) warp of
             an extended identity bank instead of a fresh splat. None means
             on when the device is CUDA (the production default on the
             accelerator), off on the CPU.
         device: None means the CUDA card (raises without one); "cpu" runs
-            the plain versions of the kernels.
+            the plain versions of the kernels. With a mesh, the mesh's device.
+        mesh: this rank's place on a mesh (parallel/mesh.py:make_mesh); each
+            rank scores its rows of every batch. None: one device.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    if mesh is not None and batch_size % mesh.size != 0:
+        raise ValueError(f"batch_size {batch_size} not divisible by mesh size {mesh.size}")
     if set(cfg.modalities) != {"ceiling_rgb_texture", "floor_rgb_texture"}:
         raise ValueError("Fused inference supports the ceiling+floor RGB verifier.")
     if not hypotheses:
@@ -160,6 +172,8 @@ def score_floor_hypotheses(
     for start in range(0, len(hypotheses), batch_size):
         chunk = hypotheses[start : start + batch_size]
         chunk_p = chunk + [chunk[-1]] * (batch_size - len(chunk))
+        if mesh is not None:
+            chunk_p = shard_batch(mesh, chunk_p)
         i1_idx = torch.tensor([pano_id_to_bank_row[h[0]] for h in chunk_p], device=dev)
         i2_idx = torch.tensor([pano_id_to_bank_row[h[1]] for h in chunk_p], device=dev)
         rotations = torch.from_numpy(
@@ -173,6 +187,8 @@ def score_floor_hypotheses(
             model, cfg, render_cfg, use_warp_renders, depths_d, rgbs_d,
             bank_ceil, bank_floor, i1_idx, i2_idx, rotations, translations,
         )
+        if mesh is not None:
+            y_hat, prob = all_gather_rows(mesh, y_hat), all_gather_rows(mesh, prob)
         y_hat, prob = y_hat.cpu().numpy(), prob.cpu().numpy()
         for k, (i1, i2, ah) in enumerate(chunk):
             results.append(

@@ -4,9 +4,16 @@ Keeps salve_tpu's contract (scripts/train.py, scripts/test.py through it):
 per-epoch train and val metrics accumulated into a results dict,
 best-`val_mAcc` checkpointing, the results JSON and config copy, and
 `evaluate` writing the `batch_{i}.json` predictions Stage D reads. Runs on
-one card (`device=None`); a mesh of more than one device raises. Both run
-under `device.deterministic_algorithms()`: one seed and one corpus give the
-same bits on every run, as salve_tpu's do on XLA:CPU.
+one card (`device=None`), or on the mesh `cfg.mesh_shape` asks for
+(parallel/mesh.py: None is the whole world of the process group, one
+process outside one), with salve_tpu's global-batch semantics
+(training/train.py). Each rank reads the same batches; a batch the mesh
+divides is split over the ranks, and one it does not (a host-streamed
+tail) runs whole on every rank, with no collective, as salve_tpu runs it
+unsharded (salve_tpu/training/loop.py:123, :325). Rank 0 writes the
+checkpoints, the results and the `batch_{i}.json` files. Both run under
+`device.deterministic_algorithms()`: one seed and one corpus give the same
+bits on every run, as salve_tpu's do on XLA:CPU.
 """
 
 from __future__ import annotations
@@ -21,19 +28,13 @@ import torch
 
 from salve_tpu_torch.dataset.bev_pairs import BEVPairDataset
 from salve_tpu_torch.device import DeviceLike, deterministic_algorithms, resolve_device
+from salve_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate, shard_batch
 from salve_tpu_torch.training import train as train_lib
 from salve_tpu_torch.training.config import TrainingConfig
 from salve_tpu_torch.training.meters import PrecisionRecallMeter, SegmentationAverageMeter
 from salve_tpu_torch.utils.io import save_json_file
 
 logger = logging.getLogger(__name__)
-
-
-def _check_one_device(cfg: TrainingConfig) -> None:
-    if cfg.mesh_shape is not None and tuple(cfg.mesh_shape) != (1,):
-        raise ValueError(
-            f"mesh_shape {cfg.mesh_shape}: salve_tpu_torch trains on one card (mesh_shape None or (1,))"
-        )
 
 
 def _new_accumulator(num_classes: int, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -47,8 +48,8 @@ def _new_accumulator(num_classes: int, device: torch.device) -> Dict[str, torch.
 def _fold(acc: Dict[str, torch.Tensor], loss, probs, labels, valid) -> None:
     """Fold one step's outputs into the device-side accumulator, in place.
 
-    `valid` masks wrap-around padding rows (salve_tpu's DeviceCorpus pads
-    shards on a mesh; on one card every row is valid), so duplicated
+    `valid` masks wrap-around padding rows (a DeviceCorpus pads its shards
+    on a mesh; on one card every row is valid), so duplicated
     examples never count in the confusion matrix. The step loss is a batch
     mean, so loss_sum weights it by the valid count.
     """
@@ -78,31 +79,43 @@ def run_epoch(
     cfg: TrainingConfig,
     epoch: int,
     state: train_lib.TrainState,
-    step_fn,
+    steps,
     dataset,
     split: str,
     gen: Optional[torch.Generator] = None,
     max_batches: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[train_lib.TrainState, Dict[str, float]]:
     """One pass over a split. Returns (state, metrics dict).
 
-    Steps and metric folds are queued on the device; the host waits only
-    at the log lines (every print_every batches) and at the final fetch,
-    and every `sync_every` steps fetches one scalar, so the host runs at
-    most that many steps ahead of the device (each queued batch pins its
-    images in device memory).
+    `steps` is (the mesh's step, the one-device step): a batch the mesh
+    divides goes through the first on this rank's rows (a DeviceCorpus
+    yields them already), any other through the second whole. Steps and
+    metric folds are queued on the device; the host waits only at the log
+    lines (every print_every batches) and at the final fetch, and every
+    `sync_every` steps fetches one scalar, so the host runs at most that
+    many steps ahead of the device (each queued batch pins its images in
+    device memory).
     """
+    from salve_tpu_torch.training.device_corpus import DeviceCorpus
+
+    sharded_step, whole_step = steps
     acc = _new_accumulator(cfg.num_ce_classes, state.device)
     n_batches = 0
     t_start = time.time()
     sync_every = max(1, min(cfg.print_every, 32))
+    rows_are_local = isinstance(dataset, DeviceCorpus)
     for batch in dataset.iter_batches(cfg.batch_size, shuffle=(split == "train"), seed=epoch):
         imgs, labels = batch[0], batch[1]
         valid = batch[3] if len(batch) > 3 else np.ones(len(labels), bool)
+        step_fn, step_imgs, step_labels = whole_step, imgs, labels
+        if mesh is not None and mesh.size > 1 and len(labels) % mesh.size == 0:
+            step_fn, step_labels = sharded_step, shard_batch(mesh, labels)
+            step_imgs = imgs if rows_are_local else shard_batch(mesh, imgs)
         if split == "train":
-            state, metrics = step_fn(state, imgs, labels, gen)
+            state, metrics = step_fn(state, step_imgs, step_labels, gen)
         else:
-            metrics = step_fn(state, imgs, labels)
+            metrics = step_fn(state, step_imgs, step_labels)
         _fold(acc, metrics["loss"], metrics["probs"], labels, valid)
         n_batches += 1
         if n_batches % cfg.print_every == 0:
@@ -120,27 +133,28 @@ def run_epoch(
     return state, {"avg_loss": avg_loss, "mAcc": mAcc, "class_accs": accuracy_class}
 
 
-def _data_sources(cfg: TrainingConfig, train_ds, val_ds, device: torch.device):
+def _data_sources(cfg: TrainingConfig, train_ds, val_ds, mesh: Mesh):
     """The host datasets, or device corpora where `device_corpus_gb` covers
-    them (salve_tpu/training/loop.py:205-247 on a mesh of one)."""
+    them (salve_tpu/training/loop.py:205-247)."""
     budget_gb = float(getattr(cfg, "device_corpus_gb", 0.0) or 0.0)
     if budget_gb <= 0 or len(train_ds) == 0:
         return train_ds, val_ds
     from salve_tpu_torch.training import device_corpus as dc
 
     def fits_one_step(ds) -> bool:
-        # A split smaller than one batch keeps streaming from the host,
-        # which yields partial batches.
-        return len(ds) >= cfg.batch_size > 0
+        # A split whose shard cannot fill one per-rank batch keeps streaming
+        # from the host, which yields partial batches.
+        per_rank = cfg.batch_size // mesh.size
+        return -(-len(ds) // mesh.size) >= per_rank > 0
 
     est_train = dc.estimated_corpus_bytes(train_ds)
     est_val = dc.estimated_corpus_bytes(val_ds)
-    if est_train <= budget_gb * 1e9 and fits_one_step(train_ds):
-        train_data, val_data = dc.DeviceCorpus(train_ds, device), val_ds
+    if est_train <= budget_gb * 1e9 and cfg.batch_size % mesh.size == 0 and fits_one_step(train_ds):
+        train_data, val_data = dc.DeviceCorpus(train_ds, mesh.device, mesh), val_ds
         # The val split rides along when the budget covers both (its tail
         # under one batch is then dropped).
         if 0 < est_val <= budget_gb * 1e9 - est_train and fits_one_step(val_ds):
-            val_data = dc.DeviceCorpus(val_ds, device)
+            val_data = dc.DeviceCorpus(val_ds, mesh.device, mesh)
         elif len(val_ds) > 0:
             logger.warning(
                 "device_corpus: val split streams from host (%.2f GB over remaining budget, or < one full step)",
@@ -148,8 +162,8 @@ def _data_sources(cfg: TrainingConfig, train_ds, val_ds, device: torch.device):
             )
         return train_data, val_data
     logger.warning(
-        "device_corpus disabled: corpus %.2f GB vs budget %.2f GB, batch %d, or split smaller than one step",
-        est_train / 1e9, budget_gb, cfg.batch_size,
+        "device_corpus disabled: corpus %.2f GB vs budget %.2f GB, batch %d vs mesh size %d, or split smaller "
+        "than one step", est_train / 1e9, budget_gb, cfg.batch_size, mesh.size,
     )
     return train_ds, val_ds
 
@@ -169,7 +183,10 @@ def train(
     (the port's `.pt`, salve_tpu's `.flax`, or a reference `.pth`, weights
     only) to continue the SAME run; finetune_from restores parameters and
     batch statistics only, with a fresh optimizer and LR schedule. Returns
-    the results dict (train_/val_ prefixed metrics).
+    the results dict (train_/val_ prefixed metrics), on every rank.
+
+    `cfg.mesh_shape` asking for more processes than the process group holds
+    raises (parallel/mesh.py:make_mesh says how to start them).
     """
     if resume_from is not None and finetune_from is not None:
         raise ValueError(
@@ -177,8 +194,8 @@ def train(
             "restore would resume past the new run's poly-LR horizon "
             "(lr=0, no learning) — pick one."
         )
-    _check_one_device(cfg)
-    dev = resolve_device(device)
+    mesh = make_mesh(cfg.mesh_shape, device=resolve_device(device))
+    dev = mesh.device
     np.random.seed(0)
 
     train_ds = BEVPairDataset("train", cfg, workers=cfg.workers)
@@ -194,10 +211,11 @@ def train(
     elif finetune_from is not None:
         state = train_lib.load_model_checkpoint(finetune_from, state, params_only=True)
         logger.info("Fine-tuning from %s (fresh optimizer)", finetune_from)
+    replicate(mesh, state.model)
 
-    train_data, val_data = _data_sources(cfg, train_ds, val_ds, dev)
-    train_step = train_lib.make_train_step(cfg)
-    eval_step = train_lib.make_eval_step(cfg)
+    train_data, val_data = _data_sources(cfg, train_ds, val_ds, mesh)
+    train_steps = (train_lib.make_train_step(cfg, mesh), train_lib.make_train_step(cfg))
+    eval_steps = (train_lib.make_eval_step(cfg, mesh), train_lib.make_eval_step(cfg))
 
     results_dict: Dict[str, List[float]] = defaultdict(list)
     exp_start_time = time.strftime("%Y_%m_%d_%H_%M_%S")
@@ -206,14 +224,15 @@ def train(
     for epoch in range(cfg.num_epochs):
         logger.info("On epoch %d", epoch)
         state, train_metrics = run_epoch(
-            cfg, epoch, state, train_step, train_data, "train", gen=gen, max_batches=max_batches_per_epoch
+            cfg, epoch, state, train_steps, train_data, "train", gen=gen, max_batches=max_batches_per_epoch,
+            mesh=mesh,
         )
         for k, v in train_metrics.items():
             results_dict[f"train_{k}"].append(v)
 
         if len(val_ds) > 0:
-            _, val_metrics = run_epoch(cfg, epoch, state, eval_step, val_data, "val",
-                                       max_batches=max_batches_per_epoch)
+            _, val_metrics = run_epoch(cfg, epoch, state, eval_steps, val_data, "val",
+                                       max_batches=max_batches_per_epoch, mesh=mesh)
         else:
             logger.warning("val split is empty; selecting ckpt on train_mAcc")
             val_metrics = train_metrics
@@ -222,10 +241,11 @@ def train(
 
         crit = results_dict["val_mAcc"]
         is_best = epoch == 0 or crit[-1] > max(crit[:-1])
-        if is_best:
-            train_lib.save_checkpoint(results_dir, state, epoch, crit[-1], cfg)
-        save_json_file(f"{results_dir}/results-{exp_start_time}-{cfg.cfg_stem}.json", dict(results_dict))
-        train_lib.save_results_json(results_dir, dict(results_dict), cfg)
+        if mesh.is_main:
+            if is_best:
+                train_lib.save_checkpoint(results_dir, state, epoch, crit[-1], cfg)
+            save_json_file(f"{results_dir}/results-{exp_start_time}-{cfg.cfg_stem}.json", dict(results_dict))
+            train_lib.save_results_json(results_dir, dict(results_dict), cfg)
         logger.info("val_mAcc history: %s", [f"{v:.3f}" for v in crit])
 
     return dict(results_dict)
@@ -244,19 +264,23 @@ def evaluate(
 
     Each batch writes batch_{i}.json with {y_hat, y_true, y_hat_probs, fp0,
     fp1} (scripts/test.py:156-254): the Stage C -> Stage D contract that
-    cli/run_sfm.py parses. Returns (precision, recall, mAcc).
+    cli/run_sfm.py parses. Returns (precision, recall, mAcc), on every
+    rank of a mesh; rank 0 writes the files.
     """
-    _check_one_device(cfg)
-    dev = resolve_device(device)
+    mesh = make_mesh(cfg.mesh_shape, device=resolve_device(device))
+    dev = mesh.device
     ds = BEVPairDataset(split, cfg, workers=cfg.workers)
     state = train_lib.create_train_state(cfg, torch.Generator().manual_seed(0), 1, dev)
     state = train_lib.load_model_checkpoint(ckpt_fpath, state)
-    eval_step = train_lib.make_eval_step(cfg)
+    sharded_step, whole_step = train_lib.make_eval_step(cfg, mesh), train_lib.make_eval_step(cfg)
 
     pr_meter = PrecisionRecallMeter()
     sam = SegmentationAverageMeter()
     for batch_idx, (imgs, labels, tuples) in enumerate(ds.iter_batches(cfg.batch_size, shuffle=False)):
-        metrics = eval_step(state, imgs, labels)
+        if mesh.size > 1 and len(labels) % mesh.size == 0:
+            metrics = sharded_step(state, *shard_batch(mesh, (imgs, labels)))
+        else:
+            metrics = whole_step(state, imgs, labels)
         y_hat = metrics["y_hat"].cpu().numpy()
         probs = metrics["probs"].cpu().numpy()
         labels_np = np.asarray(labels)
@@ -264,16 +288,17 @@ def evaluate(
         sam.update_metrics(y_hat, labels_np, num_classes=cfg.num_ce_classes)
 
         n = y_hat.shape[0]
-        save_json_file(
-            f"{serialization_save_dir}/batch_{batch_idx}.json",
-            {
-                "y_hat": y_hat.tolist(),
-                "y_true": labels_np.tolist(),
-                "y_hat_probs": probs[np.arange(n), y_hat].tolist(),
-                "fp0": [t[0] for t in tuples],
-                "fp1": [t[1] for t in tuples],
-            },
-        )
+        if mesh.is_main:
+            save_json_file(
+                f"{serialization_save_dir}/batch_{batch_idx}.json",
+                {
+                    "y_hat": y_hat.tolist(),
+                    "y_true": labels_np.tolist(),
+                    "y_hat_probs": probs[np.arange(n), y_hat].tolist(),
+                    "fp0": [t[0] for t in tuples],
+                    "fp1": [t[1] for t in tuples],
+                },
+            )
         if max_batches is not None and batch_idx + 1 >= max_batches:
             break
 

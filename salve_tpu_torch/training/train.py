@@ -11,6 +11,15 @@ says so), the loss, the backward and the update. The optimizer is optax's
 `chain(add_decayed_weights(wd), adam(schedule))` written out in optax's
 order of operations (`OptaxAdam`), so one step from the same weights lands
 where salve_tpu's does; the schedule is optax's polynomial schedule.
+
+On a mesh of N > 1 ranks (parallel/mesh.py) a step has the semantics of
+salve_tpu's jitted step on a batch sharded over its mesh: the loss is the
+mean over the global batch, batch norm uses the global batch's statistics
+(models/resnet.py:global_batch_statistics), the class-balanced weights
+count the global batch's classes, the augmentation is drawn for the global
+batch from the one generator (each rank takes its rows), the gradients are
+all-reduced as a mean over the equal shards, and the metrics come back
+global.
 """
 
 from __future__ import annotations
@@ -18,14 +27,16 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import asdict, dataclass
-from typing import Any, Callable, Dict, List, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet, init_flax_style
+from salve_tpu_torch.models.resnet import global_batch_statistics
 from salve_tpu_torch.models.weights import read_verifier_checkpoint
+from salve_tpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_sum
 from salve_tpu_torch.training import transforms
 from salve_tpu_torch.training.config import TrainingConfig
 
@@ -175,7 +186,31 @@ def _as_device_batch(imgs, labels, device: torch.device):
     return imgs, labels.to(device, non_blocking=True).long()
 
 
-def make_train_step(cfg: TrainingConfig):
+def _sharded(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
+def _rank_rows(params: transforms.AugmentParams, mesh: Mesh) -> transforms.AugmentParams:
+    """This rank's rows of the global batch's augmentation parameters."""
+    k = params.off_h.shape[0] // mesh.size
+    rows = slice(mesh.rank * k, (mesh.rank + 1) * k)
+    p = params.photometric
+    if p is not None:
+        p = transforms.PhotometricParams(*(t[rows] for t in (p.brightness, p.contrast, p.saturation, p.hue)))
+    return transforms.AugmentParams(*(t[rows] for t in (params.off_h, params.off_w, params.do_hflip,
+                                                         params.do_vflip)), photometric=p)
+
+
+def _all_reduce_mean_grads(mesh: Mesh, params: List[torch.nn.Parameter]) -> None:
+    """Each parameter's `.grad` becomes the mean over the ranks, in one
+    all-reduce of the flattened gradients."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    all_reduce_sum(mesh, flat).div_(mesh.size)
+    torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)])
+
+
+def make_train_step(cfg: TrainingConfig, mesh: Optional[Mesh] = None):
     """Returns train_step(state, imgs, labels, aug) -> (state, metrics).
 
     imgs: (B, N, resize_h, resize_w, 3) uint8 (host array or device
@@ -183,34 +218,54 @@ def make_train_step(cfg: TrainingConfig):
     augmentation from, or drawn `transforms.AugmentParams`. The metrics
     ("loss", "accuracy", "probs") stay on the device; after the step each
     parameter's `.grad` holds this step's gradient.
+
+    With a mesh of N > 1, imgs and labels are this rank's rows of a global
+    batch of N * B (parallel/mesh.py:shard_batch) and `aug` is drawn (or
+    given) for the global batch; the metrics are the global batch's and
+    `.grad` the global gradient on every rank.
     """
+    sharded = _sharded(mesh)
 
     def train_step(state: TrainState, imgs, labels, aug: Union[torch.Generator, transforms.AugmentParams]):
         imgs, labels = _as_device_batch(imgs, labels, state.device)
+        world = mesh.size if sharded else 1
         if isinstance(aug, torch.Generator):
             b, n, h, w, _ = imgs.shape
-            aug = transforms.draw_augment_params(aug, b, n, h, w, cfg.train_h, cfg.train_w,
+            aug = transforms.draw_augment_params(aug, world * b, n, h, w, cfg.train_h, cfg.train_w,
                                                  cfg.apply_photometric_augmentation)
+        if sharded:
+            aug = _rank_rows(aug, mesh)
         x = transforms.apply_augment(imgs, aug.to(state.device), cfg.train_h, cfg.train_w)
         model = state.model.train()
         for p in model.parameters():
             p.grad = None
-        logits = model(split_images(x))
+        with global_batch_statistics(model, mesh):
+            logits = model(split_images(x))
         ce = F.cross_entropy(logits, labels, reduction="none")
         if cfg.class_balanced_loss:
-            # Each class contributes half of the loss (train.py:118-131).
+            # Each class contributes half of the loss (train.py:118-131),
+            # the classes counted over the global batch.
             pos = labels == 1
-            n_pos = pos.sum().clamp_min(1).to(torch.float32)
-            n_neg = (~pos).sum().clamp_min(1).to(torch.float32)
+            counts = torch.stack([pos.sum(), (~pos).sum()])
+            if sharded:
+                all_reduce_sum(mesh, counts)
+            n_pos, n_neg = counts.clamp_min(1).to(torch.float32)
             loss = (ce * torch.where(pos, 0.5 / n_pos, 0.5 / n_neg)).sum()
+            if sharded:
+                loss = loss * world  # this rank's share of the global loss, as a shard mean
         else:
             loss = ce.mean()
         loss.backward()
+        if sharded:
+            _all_reduce_mean_grads(mesh, list(model.parameters()))
         state.optimizer.step()
         state.step += 1
-        logits = logits.detach()
+        logits, loss = logits.detach(), loss.detach()
+        if sharded:
+            logits, labels = all_gather_rows(mesh, logits), all_gather_rows(mesh, labels)
+            loss = all_reduce_sum(mesh, loss.clone()) / world
         return state, {
-            "loss": loss.detach(),
+            "loss": loss,
             "accuracy": (logits.argmax(dim=1) == labels).to(torch.float32).mean(),
             "probs": torch.softmax(logits, dim=1),
         }
@@ -218,14 +273,21 @@ def make_train_step(cfg: TrainingConfig):
     return train_step
 
 
-def make_eval_step(cfg: TrainingConfig):
-    """Returns eval_step(state, imgs, labels) -> {"loss", "probs", "y_hat"} (no grad)."""
+def make_eval_step(cfg: TrainingConfig, mesh: Optional[Mesh] = None):
+    """Returns eval_step(state, imgs, labels) -> {"loss", "probs", "y_hat"} (no grad).
+
+    With a mesh of N > 1, imgs and labels are this rank's rows and the
+    results are the global batch's (the logits all-gathered).
+    """
+    sharded = _sharded(mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, imgs, labels):
         imgs, labels = _as_device_batch(imgs, labels, state.device)
         x = transforms.preprocess_eval(imgs, cfg.train_h, cfg.train_w)
         logits = state.model.eval()(split_images(x))
+        if sharded:
+            logits, labels = all_gather_rows(mesh, logits), all_gather_rows(mesh, labels)
         return {
             "loss": F.cross_entropy(logits, labels),
             "probs": torch.softmax(logits, dim=1),

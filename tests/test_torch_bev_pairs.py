@@ -42,6 +42,7 @@ from salve_tpu_torch.native import jpeg
 from salve_tpu_torch.training import device_corpus as tdc
 from salve_tpu_torch.training import transforms as tt
 from salve_tpu_torch.training.config import TrainingConfig
+from torch_parallel_work import FakeDataset
 
 REPO = Path(__file__).resolve().parents[1]
 TRAIN_IDS = sorted(DATASET_SPLITS["train"], key=int)[:2]
@@ -368,29 +369,10 @@ def test_decode_resize_raises_on_a_file_the_codec_refuses(tmp_path):
 # ---------------------------------------------------------------- (e) the device corpus
 
 
-class _FakeDataset:
-    """A BEVPairDataset stand-in: tuple i's pixels are the constant i % 251."""
-
-    def __init__(self, args, n, n_imgs=2):
-        self.args = args
-        self.data_list = [(f"img_{i}_a.jpg", f"img_{i}_b.jpg", i % 2) for i in range(n)]
-        self.n_imgs = n_imgs
-
-    def __len__(self):
-        return len(self.data_list)
-
-    def _load_tuples(self, tuples):
-        a = self.args
-        out = np.empty((len(tuples), self.n_imgs, a.resize_h, a.resize_w, 3), np.uint8)
-        for j, t in enumerate(tuples):
-            out[j] = int(t[0].split("_")[1]) % 251
-        return out
-
-
 @pytest.mark.parametrize("n,batch", [(50, 8), (16, 16), (1030, 64)])
 def test_device_corpus_equals_salve_tpu_on_one_device(n, batch):
     small = dict(resize_h=6, resize_w=5)
-    jds, tds = _FakeDataset(JaxConfig(**small), n), _FakeDataset(TrainingConfig(**small), n)
+    jds, tds = FakeDataset(JaxConfig(**small), n), FakeDataset(TrainingConfig(**small), n)
     assert tdc.estimated_corpus_bytes(tds) == jdc.estimated_corpus_bytes(jds) == n * 2 * 6 * 5 * 3
     ref = jdc.DeviceCorpus(jds, make_mesh((1,), devices=jax.devices()[:1]))
     got = tdc.DeviceCorpus(tds, torch.device("cpu"))
@@ -410,6 +392,6 @@ def test_device_corpus_equals_salve_tpu_on_one_device(n, batch):
 def test_device_corpus_refuses_an_empty_or_too_small_split():
     args = TrainingConfig(resize_h=4, resize_w=4)
     with pytest.raises(ValueError, match="empty"):
-        tdc.DeviceCorpus(_FakeDataset(args, 0), torch.device("cpu"))
+        tdc.DeviceCorpus(FakeDataset(args, 0), torch.device("cpu"))
     with pytest.raises(ValueError, match="batch"):
-        next(tdc.DeviceCorpus(_FakeDataset(args, 3), torch.device("cpu")).iter_batches(4, shuffle=True))
+        next(tdc.DeviceCorpus(FakeDataset(args, 3), torch.device("cpu")).iter_batches(4, shuffle=True))

@@ -57,6 +57,11 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_no_jax_and_no_reference_package():
     files = _port_files()
     assert len(files) > 20
+    # The rule covers the mesh and the host helpers too.
+    covered = {str(f.relative_to(REPO)) for f in files}
+    assert {"salve_tpu_torch/parallel/__init__.py", "salve_tpu_torch/parallel/mesh.py",
+            "salve_tpu_torch/utils/transform.py", "salve_tpu_torch/utils/function_timeout.py",
+            "salve_tpu_torch/utils/csv_utils.py", "salve_tpu_torch/utils/mesh_grid.py"} <= covered
     bad = []
     for f in files:
         rel = str(f.relative_to(REPO))
@@ -137,9 +142,16 @@ def test_cli_flags_parse_as_the_click_clis_did(tmp_path):
             run_sfm.build_parser().parse_args(sfm + bad)
 
 
-# The evaluation and analysis CLIs: (port module, salve_tpu's click command,
-# argv cases); PATH and FILE stand for an existing directory and file.
+# The evaluation and analysis CLIs, and the fused scorer's (its
+# --mesh_devices included): (port module, salve_tpu's click command, argv
+# cases); PATH and FILE stand for an existing directory and file.
 NEW_CLI_CASES = [
+    ("test_fused", "run_test_fused",
+     [["--hypotheses_save_root", "PATH", "--raw_dataset_dir", "PATH", "--depth_save_root", "d", "--ckpt_fpath", "FILE",
+       "--serialization_save_dir", "s"],
+      ["--hypotheses_save_root", "PATH", "--raw_dataset_dir", "PATH", "--depth_save_root", "d", "--ckpt_fpath", "FILE",
+       "--serialization_save_dir", "s", "--mesh_devices", "2", "--no_warp_renders", "--building_id", "0001",
+       "--batch_size", "16", "--num_layers", "18", "--append_pair_difference"]]),
     ("eval_floorplan", "run_eval_floorplan",
      [["--raw_dataset_dir", "PATH", "--mhnet_predictions_data_root", "PATH"],
       ["--raw_dataset_dir", "PATH", "--mhnet_predictions_data_root", "PATH", "--split", "val", "--viz_save_dir", "v"]]),
@@ -220,6 +232,26 @@ def test_entry_points_raise_without_a_card(no_cuda, tmp_path):
         score_floor_hypotheses(model, cfg, depths, rgbs, {0: 0}, [])
     with pytest.raises(RuntimeError, match="CUDA"):
         score_building_fused("0000", str(tmp_path), str(tmp_path), str(tmp_path), model, cfg, str(tmp_path))
+
+
+def test_mesh_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    """The mesh, its launcher, the scorer and train() take the card by
+    default and raise without one; a mesh of more processes than the group
+    holds says how to start them."""
+    from salve_tpu_torch.parallel import launch, make_mesh
+    from salve_tpu_torch.training.config import TrainingConfig
+    from salve_tpu_torch.training.loop import train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch(print, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(TrainingConfig(num_layers=18, mesh_shape=(2,), data_root=str(tmp_path / "absent")))
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        train(TrainingConfig(num_layers=18, mesh_shape=(2,), data_root=str(tmp_path / "absent")), device="cpu")
+    mesh = make_mesh(device="cpu")
+    assert (mesh.size, mesh.rank, mesh.group, mesh.device.type) == (1, 0, None, "cpu")
 
 
 def test_stage_a_entry_points_raise_without_a_card(no_cuda, tmp_path):
@@ -476,6 +508,26 @@ def test_cuda_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         warp.shear_warp_cuda(bank, torch.zeros(1, dtype=torch.long), p)
     assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0}
+
+
+def test_cuda_wrappers_refuse_a_tensor_of_another_card(monkeypatch):
+    """A CUDA tensor on a card other than the current one raises before any
+    launch (the kernels launch into the current device's context). This
+    build has no CUDA tensors: a stand-in on cuda:1 with cuda:0 current
+    takes the check's path; chip_smoke.py's phase 13 runs the wrappers on
+    the current card of each rank."""
+    import types
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    other = types.SimpleNamespace(device=torch.device("cuda", 1), dtype=torch.int32, is_contiguous=lambda: True)
+    with pytest.raises(ValueError, match="current device is cuda:0"):
+        device_mod.require_cuda_tensor("cell", other, torch.int32)
+    here = types.SimpleNamespace(device=torch.device("cuda", 0), dtype=torch.int32, is_contiguous=lambda: True)
+    device_mod.require_cuda_tensor("cell", here, torch.int32)
+    for wrapper in ("splat.py", "fill.py", "warp.py"):
+        text = (REPO / "salve_tpu_torch/ops" / wrapper).read_text()
+        assert "require_cuda_tensor(" in text and "kernels.stream_handle(" in text
+        assert "kernels.stream_handle()" not in text  # the stream of the tensors' card
 
 
 def test_dispatchers_raise_on_other_devices():
