@@ -1,7 +1,7 @@
 """Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A, Stage D,
 stitching, the corpus renderer, verifier training, monocular depth, the
-end-to-end accuracy run, the evaluation CLIs and the mesh of ranks on one
-CUDA card.
+end-to-end accuracy run, the evaluation CLIs, the mesh of ranks and the
+single-image and single-pair renders on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -220,6 +220,26 @@ Phases:
      and B3's pair launch at 2x16 rows in all four rot90 branches, each
      equal to its plain version, timed beside its bound; the phase's
      seconds.
+ 14. the single-image and single-pair renders and the figures' policy
+     (utils/plotting.py), after printing whether matplotlib and PIL are
+     installed: `render_bev_image` on phase 3's pano 0 for both surfaces at
+     501^2, card equal to CPU bit for bit, one B1 and one B2 launch a call,
+     then B1 and B2 at B = 1 timed beside their byte bounds (sleep kernel
+     ahead of each round); `render_bev_pair` for one hypothesis and
+     `render_bev_pairs_batch` for 16 pairs of phase 3's panos, each surface,
+     equal to `render_bev_pairs_batch_device`'s rows and to the CPU bit for
+     bit, one B1 and one B2 a call; `rasterize_room_layout_pair` on two panos
+     of phase 6's floor 0000, card equal to CPU; the depth-map CLI's image
+     function (`backprojected_bev_images`) on one of phase 8's panos, card
+     equal to CPU, and the CLI: without matplotlib it raises
+     `MatplotlibMissing` and writes no file, with it it writes a PNG that
+     decodes; `run_sfm` on phase 6's floor 0000 with `plot_save_dir`: its
+     reports, serialized poses and summary those of phase 6's card run,
+     without matplotlib one warning and no figure, with it both report
+     figures; `visualize_floorplans_side_by_side_baselines` on a seeded
+     OpenSfM reconstruction of floor 0000 on the card (`main` with
+     `--device cuda` where matplotlib is installed, else the CLI's
+     computation), its report equal to the CPU's.
 
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -234,6 +254,7 @@ import gc
 import hashlib
 import io
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -354,6 +375,8 @@ MESH_PROB_BOUND = 2.0 ** -10
 MESH_LOSS_BOUND = 2.0 ** -6
 MESH_STATS_BOUND = 2.0 ** -5
 MESH_PARAM_BOUND = 4e-3
+# Phase 14: pairs of phase 3's panos in the host-array pair batch.
+SINGLE_BATCH_PAIRS = 16
 
 REPLACES = {
     "splat": "salve_tpu/ops/pallas_splat.py:77",
@@ -667,6 +690,7 @@ def run(dev) -> dict:
         report["evaluation"] = evaluation_phase(dev, Path(tmp), Path(tmp) / "e2e")
         report["mesh"] = mesh_phase(dev, Path(tmp), Path(tmp) / "corpus" / "warp_card", scored, depths, rgbs, banks,
                                     render_cfg)
+        report["single"] = single_render_phase(dev, Path(tmp), depths_np, rgbs_np, report["stage_d"])
     for name, row in report["kernels"].items():
         row["launches_corpus"] = {arm: report["corpus"][f"{arm}_card"]["launches"][name] for arm in ("warp", "direct")}
         row["launches_depth"] = {"hohonet": report["depth"]["hohonet"]["launches"][name],
@@ -678,6 +702,9 @@ def run(dev) -> dict:
         row["launches_mesh"] = {mode: [launches[name] for launches in report["mesh"]["b"][mode]["launches"]]
                                 for mode in MESH_SCORED}
         row["extra"]["per_rank"] = report["mesh"]["kernels"][name]
+        row["launches_single"] = {k: v[name] for k, v in report["single"]["launches"].items()}
+        if name in report["single"]["kernels"]:
+            row["extra"]["batch_1"] = report["single"]["kernels"][name]
     return report
 
 
@@ -3442,6 +3469,234 @@ def mesh_phase(dev, root: Path, corpus: Path, scored: dict, depths, rgbs, banks,
     return out
 
 
+class _Records(logging.Handler):
+    """Keeps the records it is given (phase 14 counts the figures' warnings)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def single_render_phase(dev, root: Path, depths_np, rgbs_np, stage_d: dict) -> dict:
+    """Phase 14: the single-image and single-pair renders on the card, and
+    the figures' policy on this machine (module docstring)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.cli import visualize_backprojected_depthmap as depthmap_cli
+    from salve_tpu_torch.cli import visualize_floorplans_side_by_side_baselines as baselines_cli
+    from salve_tpu_torch.cli.run_sfm import run_incremental_reconstruction
+    from salve_tpu_torch.common.posegraph2d import get_gt_pose_graph
+    from salve_tpu_torch.dataset import seeded_sfm
+    from salve_tpu_torch.geometry.sim2 import Sim2
+    from salve_tpu_torch.ops import bev, fill, splat
+    from salve_tpu_torch.ops.backproject import CEILING_Z_RANGE, FLOOR_Z_RANGE, backproject_depth
+    from salve_tpu_torch.rendering import bev_pair, layout
+    from salve_tpu_torch.utils import plotting
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cpu = torch.device("cpu")
+    have = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "PIL")}
+    out = {"installed": have, "launches": {}, "kernels": {}}
+    log(f"phase 14: matplotlib {'installed' if have['matplotlib'] else 'absent'}, PIL "
+        f"{'installed' if have['PIL'] else 'absent'}: the figures' "
+        + ("drawn branch" if have["matplotlib"] else "absent branch (rule (a) raises, rule (b) leaves figures out)"))
+
+    def launched(fn):
+        device_mod.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, device_mod.launch_counts()
+
+    def expect_one_each(what, counts):
+        if counts != {"splat": 1, "fill": 1, "warp": 0}:
+            raise AssertionError(f"phase 14: {what} launched {counts}, not one B1 and one B2")
+
+    # (a) render_bev_image on pano 0 at 501^2, both surfaces.
+    d0 = torch.as_tensor(depths_np[:1].astype(np.float32), device=dev)
+    c0 = torch.as_tensor(rgbs_np[:1], device=dev)
+    for surface, zr in (("floor", FLOOR_Z_RANGE), ("ceiling", CEILING_Z_RANGE)):
+        xyz, col, val = backproject_depth(d0, c0, zr)
+        got, counts = launched(lambda: bev.render_bev_image(xyz[0], col[0], val[0]))
+        expect_one_each(f"render_bev_image ({surface})", counts)
+        want = bev.render_bev_image(*(t[0].cpu() for t in backproject_depth(d0.cpu(), c0.cpu(), zr)))
+        if got.shape != (501, 501, 3) or not torch.equal(got.cpu(), want) or not bool(want.any()):
+            raise AssertionError(f"phase 14: render_bev_image ({surface}) differs between the card and the CPU")
+        out["launches"][f"render_bev_image_{surface}"] = counts
+        log(f"phase 14: render_bev_image, {surface}, 512x1024 -> 501^2: card equals CPU bit for bit "
+            f"({float((want > 0).float().mean()):.3f} of the texels nonzero); launches {counts}")
+        if surface == "floor":
+            cell, key, ok = splat_keys_at(bev, splat, xyz, col, val, 500, 0.02)
+            lib_idx, lib_src = library_splat_inputs(cell, key, ok, 501 * 501)
+            out["kernels"]["splat"] = {
+                "shape": f"1x{cell.shape[1]} points -> 1x501^2 grid (render_bev_image)",
+                "ms": time_ms(lambda: splat.splat_priority_grid(cell, key, ok, 501, 501)),
+                "plain_ms": time_ms(lambda: splat.splat_priority_grid_plain(cell, key, ok, 501, 501)),
+                "library_ms": time_ms(lambda: library_splat(lib_idx, lib_src, 1, 501 * 501, dev)),
+                "bound_ms": (cell.shape[1] * 9 + 501 * 501 * 4) / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+            }
+            args = fill_inputs(bev, splat, xyz, col, val, 500, 0.02)
+            if not torch.equal(fill.fill_and_mask(*args), fill.fill_and_mask_plain(*args)):
+                raise AssertionError("phase 14: B2 disagrees with its plain version at 1x501^2")
+            out["kernels"]["fill"] = dict(fill_row(fill, args), shape="1x501^2x3 (render_bev_image)")
+    for name, row in out["kernels"].items():
+        row["card"] = card
+        log(f"phase 14: {card}: {name} at {row['shape']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, library "
+            f"{row['library_ms']}), bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
+
+    # (b) render_bev_pair for one hypothesis, render_bev_pairs_batch for 16 pairs.
+    cfg = bev_pair.BEVRenderConfig()
+    hyps = make_hypotheses(SINGLE_BATCH_PAIRS, seed=14, n_panos=len(depths_np))
+    pairs = np.array([[i1, i2] for i1, i2, _ in hyps])
+    R = np.stack([h.i2Ti1.rotation for _, _, h in hyps])
+    t = np.stack([h.i2Ti1.translation for _, _, h in hyps])
+    bank_d = torch.as_tensor(depths_np.astype(np.float32), device=dev)
+    bank_c = torch.as_tensor(rgbs_np, device=dev)
+    for surface in ("floor", "ceiling"):
+        i1, i2, h = hyps[0]
+        pair_args = (depths_np[i1], rgbs_np[i1], depths_np[i2], rgbs_np[i2], h.i2Ti1, surface, cfg)
+        one, counts = launched(lambda: bev_pair.render_bev_pair(*pair_args, device=dev))
+        expect_one_each(f"render_bev_pair ({surface})", counts)
+        out["launches"][f"render_bev_pair_{surface}"] = counts
+        batch, counts = launched(lambda: bev_pair.render_bev_pairs_batch(depths_np, rgbs_np, pairs, R, t, surface,
+                                                                         cfg, device=dev))
+        expect_one_each(f"render_bev_pairs_batch ({surface})", counts)
+        out["launches"][f"render_bev_pairs_batch_{surface}"] = counts
+        rows = [x.cpu().numpy() for x in bev_pair.render_bev_pairs_batch_device(bank_d, bank_c, pairs, R, t, surface,
+                                                                                 cfg)]
+        cpu_batch = bev_pair.render_bev_pairs_batch(depths_np, rgbs_np, pairs, R, t, surface, cfg, device=cpu)
+        # The single pair is the batch's first: equal to its rows, so to the CPU's.
+        for k in range(2):
+            if not (np.array_equal(batch[k], rows[k]) and np.array_equal(batch[k], cpu_batch[k])
+                    and np.array_equal(one[k], batch[k][0])):
+                raise AssertionError(f"phase 14: the pair renders ({surface}, image {k + 1}) differ")
+        log(f"phase 14: render_bev_pair and render_bev_pairs_batch ({SINGLE_BATCH_PAIRS} pairs), {surface}: equal to "
+            f"render_bev_pairs_batch_device's rows and to the CPU bit for bit; one B1 and one B2 a call")
+
+    # (c) the layout pair raster on two panos of phase 6's floor 0000.
+    gt = get_gt_pose_graph("0000", "floor_01", str(root / "zind"))
+    ids = sorted(gt.nodes)
+    S = Sim2.from_theta_deg(33.0, np.array([0.4, -0.3]))
+    got, counts = launched(lambda: layout.rasterize_room_layout_pair(S, gt.nodes[ids[0]], gt.nodes[ids[1]], device=dev))
+    want = layout.rasterize_room_layout_pair(S, gt.nodes[ids[0]], gt.nodes[ids[1]], device=cpu)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)) or any(counts.values()):
+        raise AssertionError(f"phase 14: rasterize_room_layout_pair differs between the card and the CPU ({counts})")
+    log(f"phase 14: rasterize_room_layout_pair, panos {ids[0]} and {ids[1]} of floor 0000: card equals CPU bit for "
+        f"bit; launches {counts}")
+
+    # (d) the depth-map CLI on one of phase 8's panos and its depth PNG.
+    pano = sorted((root / "zind" / "0000" / "panos").glob("*.jpg"))[0]
+    depth = root / "depth" / "0000" / f"{pano.stem}.depth.png"
+    images, counts = launched(lambda: depthmap_cli.backprojected_bev_images(str(depth), str(pano), device=dev))
+    if counts != {"splat": 2, "fill": 2, "warp": 0}:
+        raise AssertionError(f"phase 14: the depth-map CLI's images launched {counts}")
+    out["launches"]["depthmap_cli"] = counts
+    cpu_images = depthmap_cli.backprojected_bev_images(str(depth), str(pano), device=cpu)
+    if [t for t, _ in images] != ["floor", "ceiling"] or not all(
+            np.array_equal(a, b) for (_, a), (_, b) in zip(images, cpu_images)):
+        raise AssertionError("phase 14: the depth-map CLI's images differ between the card and the CPU")
+    png_path = root / "single" / "backprojected_bev.png"
+    argv = ["--depth_fpath", str(depth), "--rgb_fpath", str(pano), "--save_fpath", str(png_path), "--device", dev.type]
+    png_path.parent.mkdir(parents=True, exist_ok=True)
+    if have["matplotlib"]:
+        with contextlib.redirect_stdout(io.StringIO()):
+            depthmap_cli.main(argv)
+        decoded = plotting.pyplot("phase 14").imread(str(png_path))
+        if decoded.ndim != 3 or decoded.shape[0] < 100:
+            raise AssertionError(f"phase 14: the depth-map CLI's PNG decodes to {decoded.shape}")
+        cli_note = f"wrote a PNG that decodes to {decoded.shape}"
+    else:
+        try:
+            depthmap_cli.main(argv)
+        except plotting.MatplotlibMissing as e:
+            cli_note = f"raised MatplotlibMissing ({e})"
+        else:
+            raise AssertionError("phase 14: the depth-map CLI ran without matplotlib")
+        if png_path.exists():
+            raise AssertionError("phase 14: the depth-map CLI wrote a file without matplotlib")
+    log(f"phase 14: visualize_backprojected_depthmap on {pano.name}: the images on the card equal the CPU's, "
+        f"launches {counts}; the CLI {cli_note}")
+
+    # (e) run_sfm on floor 0000 with plot_save_dir, against phase 6's card run.
+    handler = _Records()
+    logging.getLogger(plotting.__name__).addHandler(handler)
+    plotting._warned.clear()  # phase 6 may have named the report's figures already
+    plot_dir = root / "out" / "single_0000"
+    try:
+        reports = run_incremental_reconstruction(
+            hypotheses_save_root=str(root / "hyp"), serialized_preds_json_dir=str(root / "preds" / "0000"),
+            raw_dataset_dir=str(root / "zind"), method="pose2_slam", confidence_threshold=STAGE_D_THRESHOLD,
+            allowed_wdo_types=STAGE_D_WDO_TYPES, use_axis_alignment=False, predictions_data_root=None,
+            plot_save_dir=str(plot_dir), rescue_clusters=True, device=dev)
+    finally:
+        logging.getLogger(plotting.__name__).removeHandler(handler)
+    # Phase 6's card run of the same floor, call and configuration.
+    before = root / "out" / f"frozen_card_0000_{dev.type}"
+    row = next(x for x in stage_d["floors"] if x["floor"] == "0000")
+    r = reports[0]
+    gaps = [abs(r.avg_abs_rot_err - row["rot_err_deg"]), abs(r.avg_abs_trans_err - row["trans_err_m"])]
+    if (len(reports) != 1 or (r.percent_panos_localized, r.percent_in_top2_ccs, r.percent_in_top3_ccs, r.floorplan_iou)
+            != (row["localized_pct"], row["top2_pct"], row["top3_pct"], row["iou"]) or max(gaps) > 1e-6):
+        raise AssertionError(f"phase 14: run_sfm's report {r} is not phase 6's {row}")
+    name = "0000__floor_01.json"
+    a, b = (json.loads((Path(f"{d}_serialized") / name).read_text())["wSi_dict"] for d in (plot_dir, before))
+    pose_gap = max(float(np.max(np.abs(np.subtract(a[i][k], b[i][k])))) for i in b for k in ("R", "t", "s"))
+    summary_now, summary_before = (json.loads((d / "summary.json").read_text()) for d in (plot_dir, before))
+    if a.keys() != b.keys() or pose_gap > 1e-9 or summary_now.keys() != summary_before.keys() or any(
+            abs(summary_now[k] - summary_before[k]) > 1e-6 for k in summary_now):
+        raise AssertionError(f"phase 14: run_sfm's poses ({pose_gap}) or summary {summary_now} are not phase 6's "
+                             f"{summary_before}")
+    figures = sorted(str(p.relative_to(root / "out")) for p in (root / "out").glob("single_0000*/*.jpg"))
+    warned = [r.getMessage() for r in handler.records]
+    if have["matplotlib"]:
+        ok = figures == ["single_0000/0000_floor_01.jpg", "single_0000__floorplan_iou/0000_floor_01.jpg"] and not warned
+    else:
+        ok = figures == [] and len(warned) == 1
+    if not ok:
+        raise AssertionError(f"phase 14: run_sfm with plot_save_dir wrote figures {figures}, warned {warned}")
+    log(f"phase 14: run_sfm, floor 0000, plot_save_dir: report, serialized poses and summary.json those of phase "
+        f"6's card run (errors within {max(gaps):.1e}, poses within {pose_gap:.1e}); figures {figures}; "
+        f"warnings {warned}")
+
+    # (f) visualize_floorplans_side_by_side_baselines on one seeded OpenSfM floor.
+    results = root / "sfm_results_single"
+    seeded_sfm.write_opensfm_reconstruction(str(results), str(root / "zind"), "0000", "floor_01", seed=0)
+    base = ["--raw_dataset_dir", str(root / "zind"), "--results_dir", str(results), "--algorithm_name", "opensfm"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        if have["matplotlib"]:
+            card_reports = baselines_cli.main(base + ["--save_dir", str(root / "baselines_card"), "--device",
+                                                      dev.type])
+        else:
+            try:
+                baselines_cli.main(base + ["--save_dir", str(root / "baselines_refused"), "--device", dev.type])
+            except plotting.MatplotlibMissing:
+                pass
+            else:
+                raise AssertionError("phase 14: the baselines CLI ran without matplotlib")
+            if (root / "baselines_refused").exists():
+                raise AssertionError("phase 14: the baselines CLI wrote a file without matplotlib")
+            card_reports = baselines_cli.baseline_floor_reports(str(root / "zind"), str(results), "opensfm",
+                                                                str(root / "baselines_card"), device=dev)
+        cpu_reports = baselines_cli.baseline_floor_reports(str(root / "zind"), str(results), "opensfm",
+                                                           str(root / "baselines_cpu"), device=cpu)
+    gap = compare_reports("phase 14: visualize_floorplans_side_by_side_baselines", card_reports, cpu_reports)
+    r = card_reports[0]
+    log(f"phase 14: visualize_floorplans_side_by_side_baselines, opensfm floor 0000 on the card: localized "
+        f"{r.percent_panos_localized:.2f}%, IoU {r.floorplan_iou:.4f}; equal to the CPU's report (errors "
+        f"{gap:.2e} apart)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # Deterministic cuBLAS products (the training policy) need this before
     # the process's first cuBLAS call.
@@ -3515,9 +3770,13 @@ def main() -> int:
     log(f"throughput: phase 13, a world of two on one card: {ms['b']['seconds']:.1f} s for both ranks' scoring and "
         f"{MESH_TRAIN_STEPS} train steps (per rank " + ", ".join(f"{r['train_s']:.3f}" for r in ms["b"]["ranks"])
         + f" s of steps); the phase {ms['seconds']:.1f} s")
+    sg = report["single"]
+    log(f"throughput: phase 14, B1 {sg['kernels']['splat']['ms']:.4f} ms and B2 {sg['kernels']['fill']['ms']:.4f} ms "
+        f"at B = 1 (501^2; bounds {sg['kernels']['splat']['bound_ms']:.4f} and {sg['kernels']['fill']['bound_ms']:.4f} "
+        f"ms); the phase {sg['seconds']:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
-            "launches_corpus", "launches_depth", "launches_e2e", "launches_mesh", "shape",
+            "launches_corpus", "launches_depth", "launches_e2e", "launches_mesh", "launches_single", "shape",
             "extra")
     rows = [{kk: row.get(kk) for kk in keys} for row in report["kernels"].values()]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -17,7 +17,7 @@ library's argparse, with the JAX package's flags:
         --serialized_preds_json_dir PREDS --raw_dataset_dir ZIND \
         --hypotheses_save_root HYPS --use_axis_alignment false --rescue_clusters true
 
-The JAX package's matplotlib `plot_confidence_histograms` is left out.
+`plot_confidence_histograms` takes matplotlib through `utils/plotting.py`.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ from salve_tpu_torch.common.floor_reconstruction_report import (
 from salve_tpu_torch.common.posegraph2d import PoseGraph2d
 from salve_tpu_torch.dataset import hnet_prediction_loader
 from salve_tpu_torch.device import DeviceLike, resolve_device
-from salve_tpu_torch.utils import axis_alignment, graph_utils, profiler
+from salve_tpu_torch.utils import axis_alignment, graph_utils, plotting, pr_utils, profiler
 from salve_tpu_torch.utils.io import save_json_file
 
 logger = logging.getLogger(__name__)
@@ -96,6 +96,25 @@ def measure_avg_relative_pose_errors(
         len(rot_errs), mean_rot_err, mean_trans_err,
     )
     return mean_rot_err, mean_trans_err
+
+
+def plot_confidence_histograms(measurements, save_fpath: str = "confidence_histograms.png") -> None:
+    """TP/FP/FN/TN confidence histograms (parity: run_sfm.py:197)."""
+    plt = plotting.pyplot("plot_confidence_histograms")
+
+    probs = np.array([m.prob for m in measurements])
+    y_true = np.array([m.y_true for m in measurements])
+    y_hat = np.array([m.y_hat for m in measurements])
+    is_TP, is_FP, is_FN, is_TN = pr_utils.assign_tp_fp_fn_tn(y_true, y_hat)
+    for i, (mask, title) in enumerate(
+        [(is_TP, "TP"), (is_FP, "FP"), (is_FN, "FN"), (is_TN, "TN")]
+    ):
+        plt.subplot(2, 2, i + 1)
+        plt.hist(probs[mask], bins=30)
+        plt.title(title)
+    plt.tight_layout()
+    plt.savefig(save_fpath, dpi=200)
+    plt.close("all")
 
 
 def _empty_report(building_id=None, floor_id=None) -> FloorReconstructionReport:

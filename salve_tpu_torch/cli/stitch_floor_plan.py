@@ -7,10 +7,9 @@ confidence-weighted shape fusion).
 
 A copy of salve_tpu/cli/stitch_floor_plan.py (no JAX), on argparse instead of
 click, with `--device` (default: the CUDA card) for the room-grouping raster.
-`stitch_building_layouts` returns the fused shapes instead of rendering them:
-the `final.png` render (salve_tpu/cli/stitch_floor_plan.py:98-118) needs
-matplotlib, which the card's machine lacks, and waits for the renders of
-ROADMAP item 14.
+`stitch_building_layouts` writes salve_tpu's `fused/final.png` and also
+returns the fused shapes. The figure is a side figure (`utils/plotting.py`,
+rule (b)): without matplotlib it is left out, with one warning a process.
 
     python -m salve_tpu_torch.cli.stitch_floor_plan --raw_dataset_dir ZIND \\
         --est-localization-fpath SERIALIZED.json -o OUT --hnet-pred-dir PREDS --device cpu
@@ -32,7 +31,9 @@ from salve_tpu_torch.dataset import hnet_prediction_loader, salve_sfm_result_loa
 from salve_tpu_torch.dataset.salve_sfm_result_loader import EstimatedBoundaryType
 from salve_tpu_torch.device import DeviceLike, resolve_device
 from salve_tpu_torch.stitching import shape as shape_utils
+from salve_tpu_torch.stitching.cluster_stitching import FINAL_FIGURE, fill_fused_groups
 from salve_tpu_torch.stitching.models import Point2d, Pose
+from salve_tpu_torch.utils import plotting
 from salve_tpu_torch.utils.io import read_json_file
 
 logger = logging.getLogger(__name__)
@@ -59,9 +60,10 @@ def stitch_building_layouts(
     output_dir: str,
     device: DeviceLike = None,
 ) -> Tuple[list, List[List[np.ndarray]]]:
-    """Fuse a floor's localized layouts into final room shapes.
+    """Fuse a floor's localized layouts into final room shapes + floorplan.
 
-    Returns (floor_shape_final, fused_polygons) of
+    Writes `{output_dir}/fused/final.png` where matplotlib is installed, and
+    returns (floor_shape_final, fused_polygons) of
     `shape.refine_predicted_shape`: per room group, each member's fused
     boundary, confidences and pose; and the fused global-frame rings.
     """
@@ -107,7 +109,7 @@ def stitch_building_layouts(
     location_panos = _poses_from_pose_graph(est_pose_graph_corners)
 
     logger.info("Running shape refinement ...")
-    return shape_utils.refine_predicted_shape(
+    floor_shape_final, fused_polygons = shape_utils.refine_predicted_shape(
         groups=groups,
         predicted_shapes=predicted_shapes_raw,
         wall_confidences=wall_confidences,
@@ -115,6 +117,21 @@ def stitch_building_layouts(
         cluster_dir=cluster_dir,
         tour_dir=output_dir,
     )
+    if plotting.draw_side_figure(FINAL_FIGURE):
+        _render_fused_floorplan(floor_shape_final, os.path.join(cluster_dir, "final.png"))
+    return floor_shape_final, fused_polygons
+
+
+def _render_fused_floorplan(floor_shape_final, save_fpath: str) -> None:
+    """The fused rooms, filled in Tango colours (salve_tpu/cli/stitch_floor_plan.py:98-118)."""
+    Figure = plotting.figure_class("the stitched floorplan")
+
+    fig = Figure()
+    axis = fig.add_subplot(1, 1, 1)
+    fill_fused_groups(axis, floor_shape_final)
+    axis.set_aspect("equal")
+    fig.savefig(save_fpath, dpi=300)
+    logger.info("Saved fused floorplan to %s", save_fpath)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -8,7 +8,8 @@ run_sfm-output-driven flow use salve_tpu.cli.stitch_floor_plan
 
 A copy of salve_tpu/cli/stitch_floor_plan_clusters.py (no JAX), on argparse
 instead of click, with `--device` (default: the CUDA card) for the rasters.
-It writes `score.json`; the per-cluster renders wait for ROADMAP item 14.
+It writes `score.json` and each cluster's `final.png` (a side figure,
+`utils/plotting.py`: left out where matplotlib is absent).
 
     python -m salve_tpu_torch.cli.stitch_floor_plan_clusters -o OUT \\
         --est-localization-fpath cluster_pred.json --hnet-pred-dir PREDS \\

@@ -7,13 +7,15 @@ errors and % localized, rasterize the room layouts on `device` with the
 port's `polygon_mask` for the floorplan IoU (0.1 m/px over +/-25 m), and
 serialize the aligned global poses. `device=None` is the CUDA card.
 
-The matplotlib renders (the side-by-side floorplans and the IoU masks) are
-left out: with `plot_save_dir` set, the report writes the serialized poses
-and no images.
+With `plot_save_dir` set, the report also draws salve_tpu's two figures, the
+side-by-side floorplans and the IoU masks. They are side figures
+(`utils/plotting.py`, rule (b)): without matplotlib they are left out, with
+one warning a process, and everything else is written as with them.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -23,6 +25,7 @@ import torch
 from salve_tpu_torch.common.posegraph2d import PoseGraph2d
 from salve_tpu_torch.device import DeviceLike, resolve_device
 from salve_tpu_torch.ops.raster import polygon_mask
+from salve_tpu_torch.utils import plotting
 from salve_tpu_torch.utils.io import save_json_file
 from salve_tpu_torch.utils.iou_utils import binary_mask_iou
 
@@ -30,6 +33,8 @@ from salve_tpu_torch.utils.iou_utils import binary_mask_iou
 BUILDING_XLIMS_M = 25
 BUILDING_YLIMS_M = 25
 IOU_EVAL_METERS_PER_PX = 0.1
+# The report's figures, as its rule-(b) warning names them.
+REPORT_FIGURES = "the floor report's side-by-side floorplan and IoU mask figures"
 # Rooms rasterized in one polygon_mask call: its (rooms, H, W, V) bool
 # intermediates take about 4 MB a room at 501^2 px and 16 vertices.
 ROOMS_PER_CHUNK = 16
@@ -69,9 +74,13 @@ class FloorReconstructionReport:
         est_floor_pose_graph: PoseGraph2d,
         gt_floor_pose_graph: PoseGraph2d,
         plot_save_dir: Optional[str] = None,
+        plot_save_fpath: Optional[str] = None,
+        raw_dataset_dir: Optional[str] = None,
         device: DeviceLike = None,
     ) -> "FloorReconstructionReport":
-        """Align to GT, measure errors, rasterize IoU, serialize poses."""
+        """Align to GT, measure errors, rasterize IoU, serialize poses; with
+        `plot_save_dir`, also draw the two figures where matplotlib is
+        installed. `raw_dataset_dir` is unused, as in salve_tpu."""
         dev = resolve_device(device)
         num_localized = len(est_floor_pose_graph.nodes)
         num_floor_panos = len(gt_floor_pose_graph.nodes)
@@ -91,11 +100,25 @@ class FloorReconstructionReport:
         scale = gt_floor_pose_graph.scale_meters_per_coordinate
         mean_abs_trans_err_m = scale * mean_abs_trans_err
 
+        draw = plot_save_dir is not None and plotting.draw_side_figure(REPORT_FIGURES)
         if plot_save_dir is not None:
             serialize_predicted_pose_graph(aligned_est, gt_floor_pose_graph, plot_save_dir)
+        if draw:
+            render_floorplans_side_by_side(
+                est_floor_pose_graph=aligned_est,
+                show_plot=False,
+                save_plot=True,
+                plot_save_dir=plot_save_dir,
+                gt_floor_pg=gt_floor_pose_graph,
+                plot_save_fpath=plot_save_fpath,
+            )
 
         floorplan_iou = render_raster_occupancy(
-            est_floor_pose_graph=aligned_est, gt_floor_pg=gt_floor_pose_graph, device=dev
+            est_floor_pose_graph=aligned_est,
+            gt_floor_pg=gt_floor_pose_graph,
+            plot_save_dir=plot_save_dir,
+            save_viz=draw,
+            device=dev,
         )
 
         return cls(
@@ -171,15 +194,83 @@ def rasterize_room(
 def render_raster_occupancy(
     est_floor_pose_graph: PoseGraph2d,
     gt_floor_pg: PoseGraph2d,
+    plot_save_dir: Optional[str] = None,
+    save_viz: bool = False,
     device: DeviceLike = None,
 ) -> float:
-    """Raster floorplan IoU @ 0.1 m/px over +/-25 m (parity :271)."""
+    """Raster floorplan IoU @ 0.1 m/px over +/-25 m (parity :271); with
+    `save_viz` and `plot_save_dir`, the two masks are drawn to
+    `{plot_save_dir}__floorplan_iou/{building}_{floor}.jpg`."""
     scale = gt_floor_pg.scale_meters_per_coordinate
     img_px = int(2 * BUILDING_XLIMS_M / IOU_EVAL_METERS_PER_PX)
 
     est_mask = rasterize_room(est_floor_pose_graph, scale, img_px, IOU_EVAL_METERS_PER_PX, device)
     gt_mask = rasterize_room(gt_floor_pg, scale, img_px, IOU_EVAL_METERS_PER_PX, device)
-    return binary_mask_iou(est_mask, gt_mask)
+    iou = binary_mask_iou(est_mask, gt_mask)
+
+    if save_viz and plot_save_dir is not None:
+        plt = plotting.pyplot("the IoU mask figure")
+        plt.subplot(1, 2, 1)
+        plt.imshow(np.flipud(est_mask))
+        plt.subplot(1, 2, 2)
+        plt.imshow(np.flipud(gt_mask))
+        plt.suptitle(f"{gt_floor_pg.building_id} {gt_floor_pg.floor_id} --> IoU {iou:.2f}")
+        save_dir = f"{plot_save_dir}__floorplan_iou"
+        os.makedirs(save_dir, exist_ok=True)
+        plt.savefig(
+            f"{save_dir}/{gt_floor_pg.building_id}_{gt_floor_pg.floor_id}.jpg", dpi=300
+        )
+        plt.close("all")
+    return iou
+
+
+def render_floorplans_side_by_side(
+    est_floor_pose_graph: PoseGraph2d,
+    show_plot: bool = False,
+    save_plot: bool = True,
+    plot_save_dir: str = "floorplan_renderings",
+    gt_floor_pg: Optional[PoseGraph2d] = None,
+    plot_save_fpath: Optional[str] = None,
+) -> None:
+    """GT vs estimated floorplan, rendered side by side to a JPG."""
+    plt = plotting.pyplot("render_floorplans_side_by_side")
+
+    building_id = est_floor_pose_graph.building_id
+    floor_id = est_floor_pose_graph.floor_id
+    scale = (
+        gt_floor_pg.scale_meters_per_coordinate if gt_floor_pg is not None else 1.0
+    )
+
+    plt.figure(figsize=(12, 6))
+    ax1 = None
+    if gt_floor_pg is not None:
+        plt.suptitle("left: GT floorplan. Right: estimated floorplan.")
+        ax1 = plt.subplot(1, 2, 1)
+        _render_floorplan(gt_floor_pg, scale)
+        ax1.set_aspect("equal")
+    ax2 = plt.subplot(1, 2, 2, sharex=ax1, sharey=ax1)
+    ax2.set_aspect("equal")
+    _render_floorplan(est_floor_pose_graph, scale)
+    plt.title(f"Building {building_id}, {floor_id}")
+
+    if save_plot:
+        if plot_save_fpath is None:
+            os.makedirs(plot_save_dir, exist_ok=True)
+            plot_save_fpath = f"{plot_save_dir}/{building_id}_{floor_id}.jpg"
+        plt.savefig(plot_save_fpath, dpi=300)
+    plt.close("all")
+
+
+def _render_floorplan(pose_graph: PoseGraph2d, scale: float) -> None:
+    """Each room's ring and its pano's centre, into the current axes."""
+    plt = plotting.pyplot("_render_floorplan", agg=False)
+
+    for _, pano_obj in pose_graph.nodes.items():
+        verts = pano_obj.room_vertices_global_2d * scale
+        verts = np.vstack([verts, verts[:1]])
+        plt.plot(verts[:, 0], verts[:, 1], linewidth=1)
+        center = pano_obj.global_Sim2_local.translation * scale
+        plt.scatter(center[0], center[1], s=6)
 
 
 def summarize_reports(reconstruction_reports: List[FloorReconstructionReport]) -> dict:

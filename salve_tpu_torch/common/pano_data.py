@@ -4,8 +4,8 @@ Parity: salve/common/pano_data.py, including the ZInD left-handed ->
 right-handed conversion (x negation + transposed rotation) and the
 "sRp + t" (ZInD) -> "s(Rp + t)" (Sim(2)) convention change.
 
-A copy of salve_tpu/common/pano_data.py (no JAX). The matplotlib
-`plot_room_layout` is left out.
+A copy of salve_tpu/common/pano_data.py (no JAX); `plot_room_layout` takes
+matplotlib through `utils/plotting.py`.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 from salve_tpu_torch.common.wdo import WDO
 from salve_tpu_torch.geometry.rotations import rotmat2d
 from salve_tpu_torch.geometry.sim2 import Sim2
+from salve_tpu_torch.utils import plotting
 
 
 class CoordinateFrame(str, Enum):
@@ -61,6 +62,75 @@ class PanoData:
     @property
     def all_wdos(self) -> List[WDO]:
         return list(self.doors or []) + list(self.windows or []) + list(self.openings or [])
+
+    def plot_room_layout(
+        self,
+        coord_frame: str,
+        show_plot: bool = True,
+        scale_meters_per_coordinate: Optional[float] = None,
+    ) -> None:
+        """Draw this room's layout, camera marker + heading, and W/D/Os.
+
+        Parity: salve/common/pano_data.py:134 — windows red, doors green,
+        openings blue; the camera's +y heading marks the pano center column.
+
+        Args:
+            coord_frame: 'local', 'worldnormalized', or 'worldmetric'.
+            show_plot: show the canvas, or silently add artists to it.
+            scale_meters_per_coordinate: required for 'worldmetric'.
+        """
+        plt = plotting.pyplot("PanoData.plot_room_layout", agg=False)
+
+        if coord_frame not in ("worldmetric", "worldnormalized", "local"):
+            raise ValueError(f"Unknown coordinate frame provided: {coord_frame}.")
+
+        is_global = coord_frame in ("worldmetric", "worldnormalized")
+        room_vertices = (
+            self.room_vertices_global_2d if is_global else self.room_vertices_local_2d
+        ).copy()
+        if coord_frame == "worldmetric":
+            if scale_meters_per_coordinate is None:
+                print(
+                    "Scale is required to convert coordinates to meters; skipping rendering."
+                )
+                return
+            room_vertices *= scale_meters_per_coordinate
+        else:
+            scale_meters_per_coordinate = 1.0
+
+        ring = np.vstack([room_vertices, room_vertices[:1]])
+        plt.plot(ring[:, 0], ring[:, 1], linewidth=1)
+
+        pano_position = np.zeros((1, 2))
+        heading = np.array([[0.0, 0.3]])
+        if is_global:
+            pano_position = (
+                self.global_Sim2_local.transform_from(pano_position)
+                * scale_meters_per_coordinate
+            )
+            heading = (
+                self.global_Sim2_local.transform_from(heading)
+                * scale_meters_per_coordinate
+            )
+        plt.scatter(pano_position[0, 0], pano_position[0, 1], 30, marker="+")
+        plt.arrow(
+            pano_position[0, 0],
+            pano_position[0, 1],
+            heading[0, 0] - pano_position[0, 0],
+            heading[0, 1] - pano_position[0, 1],
+            width=0.01,
+        )
+        plt.text(pano_position[0, 0], pano_position[0, 1], str(self.id), fontsize=8)
+
+        wdo_colors = {"windows": "r", "doors": "g", "openings": "b"}
+        for wdo in self.all_wdos:
+            verts = wdo.vertices_global_2d if is_global else wdo.vertices_local_2d
+            verts = verts * scale_meters_per_coordinate
+            plt.plot(verts[:, 0], verts[:, 1], color=wdo_colors[wdo.type], linewidth=2)
+
+        if show_plot:
+            plt.axis("equal")
+            plt.show()
 
     @classmethod
     def from_json(cls, pano_data: Any) -> "PanoData":

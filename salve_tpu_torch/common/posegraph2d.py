@@ -4,9 +4,9 @@ Parity: salve/common/posegraph2d.py, with GTSAM/GTSFM replaced by the
 NumPy Pose3/Sim3 types and the batched RANSAC alignment in
 salve_tpu_torch.algorithms.pose_alignment.
 
-A copy of salve_tpu/common/posegraph2d.py (no JAX). The matplotlib
-`draw_edge` is left out; the Sim(3) alignment takes a `device` (None: the
-CUDA card), passed on to the batched RANSAC.
+A copy of salve_tpu/common/posegraph2d.py (no JAX); `draw_edge` takes
+matplotlib through `utils/plotting.py`. The Sim(3) alignment takes a
+`device` (None: the CUDA card), passed on to the batched RANSAC.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from salve_tpu_torch.device import DeviceLike
 from salve_tpu_torch.geometry.poses import Pose3, Sim3
 from salve_tpu_torch.geometry.rotations import rotmat2theta_deg, wrap_angle_deg
 from salve_tpu_torch.geometry.sim2 import Sim2
+from salve_tpu_torch.utils import plotting
 
 # Average over 1575 ZInD buildings / 2453 valid scales; used when a floor's
 # scale annotation is missing.
@@ -118,6 +119,14 @@ class PoseGraph2d(NamedTuple):
             nodes=nodes,
             scale_meters_per_coordinate=data["scale_meters_per_coordinate"],
         )
+
+    def draw_edge(self, i1: int, i2: int, color: str) -> None:
+        """Plot a dotted line between two pano centers (parity: :491)."""
+        plt = plotting.pyplot("PoseGraph2d.draw_edge", agg=False)
+
+        t1 = self.nodes[i1].global_Sim2_local.transform_from(np.zeros((1, 2))).squeeze()
+        t2 = self.nodes[i2].global_Sim2_local.transform_from(np.zeros((1, 2))).squeeze()
+        plt.plot([t1[0], t2[0]], [t1[1], t2[1]], c=color, linestyle="dotted", alpha=0.6)
 
     # -- constructors ----------------------------------------------------------
     @classmethod

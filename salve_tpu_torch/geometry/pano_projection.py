@@ -1,8 +1,9 @@
 """Equirectangular projection (port of salve_tpu/geometry/pano_projection.py).
 
 `get_uni_sphere_xyz` is torch, for the backprojection on the card. The
-pixel -> world-metric chain below it is a numpy copy of the reference's host
-path (the `xp=np` case), which the MHNet prediction loader uses.
+pixel -> world-metric chain below it and its inverse, world-metric -> pixel,
+are numpy copies of the reference's host path (the `xp=np` case); the MHNet
+prediction loader uses the former.
 """
 
 from __future__ import annotations
@@ -93,3 +94,59 @@ def pixel_to_worldmetric(points_px: np.ndarray, image_width: int, camera_height_
     points_sph = pixel_to_sphere(points_px, width=image_width)
     points_cartesian = sphere_to_cartesian(points_sph)
     return room_cartesian_to_worldmetric(points_cartesian, camera_height_m)
+
+
+def cartesian_to_sphere(points_cart: np.ndarray) -> np.ndarray:
+    """Room-Cartesian [x,y,z] -> spherical [theta, phi, rho]."""
+    x, y, z = points_cart[..., 0], points_cart[..., 1], points_cart[..., 2]
+    theta = np.arctan2(x, z)
+    rho = np.sqrt(x * x + y * y + z * z)
+    phi = np.arcsin(y / rho)
+    return np.stack([theta, phi, rho], axis=-1)
+
+
+def sphere_to_pixel(points_sph: np.ndarray, width: int) -> np.ndarray:
+    """Spherical [theta, phi] -> pano pixel coords [x, y]."""
+    height = width / 2
+    theta = points_sph[..., 0]
+    phi = points_sph[..., 1]
+    x_arr = (theta + math.pi) / (2.0 * math.pi) * (width - 1)
+    y_arr = (1.0 - (phi + math.pi / 2.0) / math.pi) * (height - 1)
+    return np.stack([x_arr, y_arr], axis=-1)
+
+
+def worldmetric_to_room_cartesian(points_worldmetric: np.ndarray, camera_height_m: float) -> np.ndarray:
+    """Inverse of :func:`room_cartesian_to_worldmetric` for floor points.
+
+    Of the two antipodal unit-sphere rays that reach a floor location, the
+    downward-looking one (negative sphere-frame y) is the physical one
+    (salve_tpu/geometry/pano_projection.py:105).
+    """
+    x = points_worldmetric[..., 0]
+    y = points_worldmetric[..., 1]
+    # Un-permute: world = [-f.x, f.z, f.y] * (h / f.y) for f = cart * [1,1,-1].
+    w = np.stack([-x, np.full_like(x, camera_height_m), y], axis=-1)
+    norm = np.sqrt(np.sum(w * w, axis=-1, keepdims=True))
+    flipped = -w / norm  # the downward-looking (f.y < 0) solution
+    return flipped * np.asarray([1.0, 1.0, -1.0])
+
+
+def worldmetric_to_pixel(points_worldmetric: np.ndarray, image_width: int, camera_height_m: float) -> np.ndarray:
+    """Full chain world-metric -> pano pixel, valid for points on the floor:
+    the round-trip inverse of :func:`pixel_to_worldmetric`."""
+    cart = worldmetric_to_room_cartesian(points_worldmetric, camera_height_m)
+    sph = cartesian_to_sphere(cart)
+    return sphere_to_pixel(sph, width=image_width)
+
+
+def xy_to_u(xy: np.ndarray) -> np.ndarray:
+    """World-metric (N,2) -> horizontal texture coordinate u in [0,1]."""
+    return (np.arctan2(xy[..., 0], xy[..., 1]) / math.pi + 1.0) / 2.0
+
+
+def xy_to_uv(xy: np.ndarray, camera_height_m: float, img_w: int, img_h: int) -> np.ndarray:
+    """World-metric floor points -> pano texture coordinates in [0,W]x[0,H]."""
+    u = xy_to_u(xy)
+    depths = np.sqrt(xy[..., 0] ** 2 + xy[..., 1] ** 2)
+    v = 1.0 - np.arctan(depths / camera_height_m) / math.pi
+    return np.stack([u * img_w, v * img_h], axis=-1)

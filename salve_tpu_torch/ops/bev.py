@@ -1,7 +1,8 @@
 """BEV texture-map rendering: bbox prune -> z-order splat -> fill -> mask.
 
-Port of salve_tpu/ops/bev.py: render_bev_images_batched (both branches),
-convex_hull_mask, and the plain-torch fills and masks. The splat is kernel
+Port of salve_tpu/ops/bev.py: render_bev_images_batched (both branches) and
+its single-cloud form `render_bev_image`, convex_hull_mask, the world->image
+Sim(2) of a render, and the plain-torch fills and masks. The splat is kernel
 B1 (ops/splat.py); the texture branch's fill + hallucination mask is kernel
 B2 (ops/fill.py). The semantic branch (`is_semantics=True`) fills with
 `nearest_fill` and masks with `hallucination_mask`, plain torch on the
@@ -13,6 +14,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 # fill_holes (salve_tpu/ops/bev.py:210) lives beside B2's plain version, whose loop it is.
@@ -161,3 +163,24 @@ def render_bev_images_batched(
         out = torch.where(hull[..., None], out, torch.zeros_like(out))
     out = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
     return torch.flip(out, dims=[1])  # flipud, as in the reference
+
+
+def render_bev_image(
+    xyz: torch.Tensor,
+    rgb: torch.Tensor,
+    valid: torch.Tensor,
+    img_px: int = DEFAULT_BEV_IMG_PX,
+    meters_per_px: float = DEFAULT_METERS_PER_PX,
+    is_semantics: bool = False,
+) -> torch.Tensor:
+    """Single-cloud render ((N, ...) -> (H, W, 3) uint8): the batched form at
+    B = 1, so a texture launches B1 and B2 once each."""
+    return render_bev_images_batched(xyz[None], rgb[None], valid[None], img_px, meters_per_px, is_semantics)[0]
+
+
+def make_bevimg_Sim2_world(
+    img_px: int = DEFAULT_BEV_IMG_PX, meters_per_px: float = DEFAULT_METERS_PER_PX
+) -> Tuple[np.ndarray, np.ndarray, float]:
+    """(R, t, s) of the world->image Sim(2) (salve_tpu/ops/bev.py:448)."""
+    half_m = int((img_px / 2) * meters_per_px)
+    return np.eye(2), np.array([half_m, half_m], dtype=np.float64), 1.0 / meters_per_px

@@ -1,8 +1,9 @@
 """BEV texture-map renders of panos in their own or a partner's frame.
 
 Port of salve_tpu/rendering/bev_pair.py: `render_identity_batched`,
-`render_transformed_batched` and the pair batch of the corpus renderer,
-`render_bev_pairs_batch_device`, the render config, and the host-side IO
+`render_transformed_batched`, the pair batch of the corpus renderer,
+`render_bev_pairs_batch_device`, and its host-array forms `render_bev_pair`
+and `render_bev_pairs_batch`; the render config; and the host-side IO
 helpers, which read images with the port's own JPEG and PNG readers
 (native/), not imageio.
 """
@@ -15,6 +16,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from salve_tpu_torch import device as device_mod
+from salve_tpu_torch.geometry.sim2 import Sim2
 from salve_tpu_torch.native import jpeg, png
 from salve_tpu_torch.ops import backproject as bp
 from salve_tpu_torch.ops import bev as bev_ops
@@ -127,6 +130,68 @@ def render_bev_pairs_batch_device(
     imgs = bev_ops.render_bev_images_batched(torch.cat([xyz1, xyz[b:]]), c, v, cfg.img_px, cfg.meters_per_px,
                                             cfg.is_semantics)
     return imgs[:b], imgs[b:]
+
+
+def render_bev_pairs_batch(
+    depths: np.ndarray,
+    rgbs: np.ndarray,
+    pair_indices: np.ndarray,
+    rotations: np.ndarray,
+    translations: np.ndarray,
+    surface_type: str,
+    cfg: BEVRenderConfig = BEVRenderConfig(),
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Render a batch of hypothesis pairs against a shared pano bank.
+
+    Args:
+        depths: (P, 512, 1024) depth bank (mm) of the P panos involved.
+        rgbs: (P, 512, 1024, 3) float RGB bank in [0, 1].
+        pair_indices: (B, 2) int: the bank rows (i1, i2) of each pair.
+        rotations: (B, 2, 2) relative rotations i2Ri1.
+        translations: (B, 2) relative translations i2ti1.
+        surface_type: "floor" or "ceiling".
+        device: where the render runs; None is the CUDA card.
+
+    Returns:
+        (imgs1, imgs2): (B, h, w, 3) uint8 numpy arrays, from one
+        `render_bev_pairs_batch_device` call (one B1 and one B2 launch).
+    """
+    dev = device_mod.resolve_device(device)
+    bank_d = torch.as_tensor(np.asarray(depths, dtype=np.float32), device=dev)
+    bank_c = torch.as_tensor(np.asarray(rgbs, dtype=np.float32), device=dev)
+    imgs1, imgs2 = render_bev_pairs_batch_device(
+        bank_d, bank_c, np.asarray(pair_indices), np.asarray(rotations, dtype=np.float32),
+        np.asarray(translations, dtype=np.float32), surface_type, cfg)
+    return imgs1.cpu().numpy(), imgs2.cpu().numpy()
+
+
+def render_bev_pair(
+    depth1: np.ndarray,
+    rgb1: np.ndarray,
+    depth2: np.ndarray,
+    rgb2: np.ndarray,
+    i2Ti1: Sim2,
+    surface_type: str,
+    cfg: BEVRenderConfig = BEVRenderConfig(),
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Render one hypothesis pair: the batch form at B = 1.
+
+    Args:
+        depth1/depth2: (512, 1024) depth maps in millimeters.
+        rgb1/rgb2: (512, 1024, 3) float RGB in [0, 1].
+        i2Ti1: relative pose hypothesis (p_i2 = i2Ti1 * p_i1).
+        surface_type: "floor" or "ceiling".
+        device: where the render runs; None is the CUDA card.
+
+    Returns:
+        (img1, img2): (h, w, 3) uint8 texture maps; img1 rendered in i2's frame.
+    """
+    imgs1, imgs2 = render_bev_pairs_batch(
+        np.stack([depth1, depth2]), np.stack([rgb1, rgb2]), np.array([[0, 1]]),
+        i2Ti1.rotation[None], i2Ti1.translation[None], surface_type, cfg, device)
+    return imgs1[0], imgs2[0]
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ float32 op for op as XLA:CPU computes them: the u8 images after round/clip
 equal the reference's exactly.
 
 `rasterize_layout_device` renders a batch natively (no vmap): layouts are
-padded to common vertex and W/D/O counts, and every render function takes
-`device=None`, which means the CUDA card.
+padded to common vertex and W/D/O counts, and every render function of host
+arrays takes `device=None`, which means the CUDA card;
+`rasterize_layout_batch_device` renders on its tensors' device.
 """
 
 from __future__ import annotations
@@ -117,18 +118,33 @@ def _pad_layout(
     return v, n_v, segs, colors, n_w
 
 
-def _render_padded(padded, img_px: int, meters_per_px: float, dev: torch.device) -> torch.Tensor:
-    """(B, H, W, 3) uint8 renders of padded layouts, on `dev`."""
-    imgs = rasterize_layout_device(
+def rasterize_layout_batch_device(
+    room_verts: torch.Tensor,
+    num_room_verts: torch.Tensor,
+    wdo_segments: torch.Tensor,
+    wdo_colors: torch.Tensor,
+    num_wdos: torch.Tensor,
+    img_px: int = bev_ops.DEFAULT_BEV_IMG_PX,
+    meters_per_px: float = bev_ops.DEFAULT_METERS_PER_PX,
+) -> torch.Tensor:
+    """`rasterize_layout_device` rounded, clipped and cast to uint8 on the
+    inputs' device (salve_tpu/rendering/layout.py:137), so the fetched
+    array is 4x smaller."""
+    imgs = rasterize_layout_device(room_verts, num_room_verts, wdo_segments, wdo_colors, num_wdos, img_px,
+                                   meters_per_px)
+    return torch.clamp(torch.round(imgs), 0, 255).to(torch.uint8)
+
+
+def _stack_padded(padded, dev: torch.device) -> Tuple[torch.Tensor, ...]:
+    """`rasterize_layout_batch_device`'s five inputs from `_pad_layout` rows:
+    the coordinates and colours on `dev`, the counts on the host."""
+    return (
         torch.as_tensor(np.stack([p[0] for p in padded]), device=dev),
         torch.as_tensor(np.array([p[1] for p in padded], dtype=np.int64)),
         torch.as_tensor(np.stack([p[2] for p in padded]), device=dev),
         torch.as_tensor(np.stack([p[3] for p in padded]), device=dev),
         torch.as_tensor(np.array([p[4] for p in padded], dtype=np.int64)),
-        img_px,
-        meters_per_px,
     )
-    return torch.clamp(torch.round(imgs), 0, 255).to(torch.uint8)
 
 
 def rasterize_single_layout(
@@ -143,7 +159,7 @@ def rasterize_single_layout(
     max_verts = max(MAX_ROOM_VERTS, room_vertices.shape[0])
     max_wdos = max(MAX_WDOS, len(wdo_objs))
     padded = [_pad_layout(room_vertices, wdo_objs, max_verts, max_wdos)]
-    return _render_padded(padded, img_px, meters_per_px, dev)[0].cpu().numpy()
+    return rasterize_layout_batch_device(*_stack_padded(padded, dev), img_px, meters_per_px)[0].cpu().numpy()
 
 
 def rasterize_layout_batch(
@@ -194,7 +210,7 @@ def rasterize_layout_batch(
 
     for start in range(0, len(layouts), chunk):
         padded = [_pad_layout(rv, w, max_verts, max_wdos) for rv, w in layouts[start : start + chunk]]
-        imgs = _render_padded(padded, img_px, meters_per_px, dev)
+        imgs = rasterize_layout_batch_device(*_stack_padded(padded, dev), img_px, meters_per_px)
         event = None
         if dev.type == "cuda":
             host = torch.empty(imgs.shape, dtype=imgs.dtype, pin_memory=True)
@@ -221,3 +237,14 @@ def layout_pair_inputs(
     i1_verts = i2Ti1.transform_from(pano1.room_vertices_local_2d)
     i1_wdos = [w.transform_from(i2Ti1) for w in pano1.all_wdos]
     return (i1_verts, i1_wdos), (pano2.room_vertices_local_2d, pano2.all_wdos)
+
+
+def rasterize_room_layout_pair(
+    i2Ti1: Sim2, pano1: PanoData, pano2: PanoData, device=None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Rasterize both panos' layouts in pano 2's frame, one render each
+    (salve_tpu/rendering/layout.py:241): pano 1's room polygon and W/D/Os
+    are moved through i2Ti1; pano 2's are already in frame i2. `device=None`
+    is the CUDA card."""
+    job1, job2 = layout_pair_inputs(i2Ti1, pano1, pano2)
+    return (rasterize_single_layout(*job1, device=device), rasterize_single_layout(*job2, device=device))

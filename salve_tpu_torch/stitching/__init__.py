@@ -10,7 +10,8 @@ The reference leaned on Shapely/GEOS for polygons and scipy interpolate;
 here polygons are plain (N,2) arrays with numpy predicates (ray casting,
 segment intersection) — vectorized over all 1024 boundary columns at once.
 
-A copy of salve_tpu/stitching/ (no JAX, no networkx, no matplotlib). The
-raster containment behind room grouping and the stitch IoU runs in torch
-(float64) on a `device`, None being the CUDA card; the rest is host code.
+A copy of salve_tpu/stitching/ (no JAX, no networkx; matplotlib through
+`utils/plotting.py`, inside the figures). The raster containment behind
+room grouping and the stitch IoU runs in torch (float64) on a `device`,
+None being the CUDA card; the rest is host code.
 """

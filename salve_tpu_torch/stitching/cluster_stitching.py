@@ -9,11 +9,10 @@ confidence-weighted fusion (shape.refine_predicted_shape) -> raster IoU vs
 the GT floor map, serialized to ``score.json``.
 
 A copy of salve_tpu/stitching/cluster_stitching.py (no JAX). Room grouping
-and the raster IoU run on `device` (None: the CUDA card). The render of each
-cluster (`_render_cluster`, ``final.png``, salve_tpu/stitching/
-cluster_stitching.py:168-195) needs matplotlib, which the card's machine
-lacks; it waits for the renders of ROADMAP item 14, so there is no `render`
-flag.
+and the raster IoU run on `device` (None: the CUDA card). Each cluster's
+``final.png`` is a side figure (`utils/plotting.py`, rule (b)): without
+matplotlib it is left out, with one warning a process, and ``score.json``
+is written as with it.
 """
 
 from __future__ import annotations
@@ -30,9 +29,15 @@ from salve_tpu_torch.stitching import shape as shape_utils
 from salve_tpu_torch.stitching.floor_map import FloorMapObject
 from salve_tpu_torch.stitching.ground_truth_utils import align_pred_poses_with_gt
 from salve_tpu_torch.stitching.loaders import MemoryLoader
+from salve_tpu_torch.stitching.draw import TANGO_COLOR_PALETTE, draw_shape_in_top_down_canvas_fill
 from salve_tpu_torch.stitching.models import Point2d, Pose
+from salve_tpu_torch.utils import plotting
 
 logger = logging.getLogger(__name__)
+
+# The stitched floorplan figure, as its rule-(b) warning names it (both
+# stitching flows draw one).
+FINAL_FIGURE = "the stitched floorplan final.png"
 
 
 def stitch_clusters(
@@ -40,6 +45,7 @@ def stitch_clusters(
     hnet_pred_dir: str,
     path_gt_floor_map: str,
     output_dir: str,
+    render: bool = True,
     device: DeviceLike = None,
 ) -> List[Dict[str, Any]]:
     """Stitch every cluster in a localization JSON and score it against GT.
@@ -49,7 +55,8 @@ def stitch_clusters(
             ``{floor_id, scale, panos: {panoid: {pose}}, start_panoid}``.
         hnet_pred_dir: ``{pano_dir}/{panoid}/rmx-*_predictions.json`` tree.
         path_gt_floor_map: ZInD floor_map JSON (GT room/floor shapes).
-        output_dir: where score.json gets written.
+        output_dir: where fused renders + score.json get written.
+        render: draw each cluster's ``fused/cluster_{i}/final.png``.
         device: where the rasters run; None is the CUDA card.
 
     Returns:
@@ -119,7 +126,7 @@ def stitch_clusters(
         )
         logger.info("cluster %d: %d room groups", i_cluster, len(groups))
 
-        _, fused_polygons = shape_utils.refine_predicted_shape(
+        floor_shape_final, fused_polygons = shape_utils.refine_predicted_shape(
             groups=groups,
             predicted_shapes=predicted_shapes_raw,
             wall_confidences=wall_confidences,
@@ -164,7 +171,40 @@ def stitch_clusters(
             score.update(iou_all=s1["iou"], area_gt_all=s1["area_b"])
         all_scores.append(score)
 
+        if render and plotting.draw_side_figure(FINAL_FIGURE):
+            _render_cluster(
+                floor_shape_final, gt_rings_cluster, cluster_dir / "final.png"
+            )
+
     with open(out / "score.json", "w") as f:
         json.dump(all_scores, f, indent=2)
     return all_scores
+
+
+def fill_fused_groups(axis, floor_shape_final) -> None:
+    """Each room group's fused shapes, filled in its Tango colour (both
+    stitching flows' figure)."""
+    for i_group, group_shapes in enumerate(floor_shape_final):
+        color = TANGO_COLOR_PALETTE[(((8 - i_group) % 8) * 3 + i_group // 8) % 24]
+        color = (color[0] / 255, color[1] / 255, color[2] / 255)
+        for xys_fused, _, pose0 in group_shapes:
+            draw_shape_in_top_down_canvas_fill(axis, xys_fused, color, pose=pose0)
+
+
+def _render_cluster(floor_shape_final, gt_rings, save_fpath) -> None:
+    """Fused rooms (filled, Tango colors) next to the GT room outlines."""
+    Figure = plotting.figure_class("_render_cluster")
+
+    fig = Figure(figsize=(12, 6))
+    axis = fig.add_subplot(1, 2, 1)
+    fill_fused_groups(axis, floor_shape_final)
+    axis.set_aspect("equal")
+    axis.set_title("fused")
+    gt_axis = fig.add_subplot(1, 2, 2, sharex=axis, sharey=axis)
+    for ring in gt_rings:
+        closed = np.vstack([ring, ring[:1]])
+        gt_axis.plot(closed[:, 0], closed[:, 1], color="gray", linewidth=0.8)
+    gt_axis.set_aspect("equal")
+    gt_axis.set_title("GT rooms")
+    fig.savefig(str(save_fpath), dpi=200)
 

@@ -1,11 +1,8 @@
 """Top-down canvas rendering of shapes/cameras (parity: salve/stitching/draw.py).
 
-A copy of salve_tpu/stitching/draw.py (no JAX) without the two functions
-that make matplotlib figures (`draw_all_room_shapes_with_given_poses_and_shapes`,
-`draw_all_room_shapes_with_poses`, salve_tpu/stitching/draw.py:80-145): the
-card's machine has no matplotlib, and they wait for the renders of ROADMAP
-item 14. The helpers below take an axis the caller made and import nothing
-of matplotlib.
+A copy of salve_tpu/stitching/draw.py (no JAX). The canvas helpers take an
+axis the caller made; the two functions that make a figure when given no
+axis take matplotlib through `utils/plotting.py`.
 """
 
 from __future__ import annotations
@@ -16,6 +13,7 @@ import numpy as np
 
 from salve_tpu_torch.stitching.models import Point2d, Pose
 from salve_tpu_torch.stitching import transform as transform_utils
+from salve_tpu_torch.utils import plotting
 
 TANGO_COLOR_PALETTE = [
     [252, 233, 79], [237, 212, 0], [196, 160, 0], [252, 175, 62],
@@ -83,3 +81,71 @@ def draw_dwo_in_top_down_canvas(
     pts = [xy_from, xy_to]
     arr = _to_global(pts, pose)
     axis.plot(arr[:, 0], arr[:, 1], color=color, linewidth=3)
+
+
+def draw_all_room_shapes_with_given_poses_and_shapes(
+    filename: Optional[str],
+    predictions,
+    poses,
+    groups: List[List],
+    confidences=None,
+    axis=None,
+):
+    """Draw every group's refined shapes + cameras on one canvas.
+
+    Parity: salve/stitching/draw.py:169 (schematics/shapely-free redesign:
+    `predictions` maps pano id -> List[Point2d] boundary in local frame,
+    `poses` maps pano id -> Pose). Returns (axis, fig).
+    """
+    plt = plotting.pyplot("draw_all_room_shapes_with_given_poses_and_shapes", agg=False)
+
+    fig = None
+    if axis is None:
+        fig = plt.figure()
+        axis = fig.add_subplot(1, 1, 1)
+    for i_group, group in enumerate(groups):
+        i_color = (i_group % 8) * 3 + i_group // 8
+        _color = TANGO_COLOR_PALETTE[i_color % 24]  # group hue (parity)
+        for panoid in group:
+            shape = list(predictions[panoid])
+            shape.append(shape[0])
+            draw_shape_in_top_down_canvas(
+                axis, shape, color="black", pose=poses[panoid]
+            )
+            draw_camera_in_top_down_canvas(axis, poses[panoid], "blue", size=20)
+    axis.set_aspect("equal")
+    if filename and fig is not None:
+        fig.savefig(filename)
+    return axis, fig
+
+
+def draw_all_room_shapes_with_poses(
+    filename: Optional[str],
+    shapes,
+    poses,
+    axis=None,
+) -> List[np.ndarray]:
+    """Draw room shapes at given global poses; return global-frame polygons.
+
+    Parity: salve/stitching/draw.py:218. The reference returns a Shapely
+    cascaded union; GEOS-free here, the per-room global polygons are
+    returned instead (callers needing occupancy take the raster union via
+    common/floor_reconstruction_report.py).
+    """
+    plt = plotting.pyplot("draw_all_room_shapes_with_poses", agg=False)
+
+    fig = None
+    if axis is None:
+        fig = plt.figure()
+        axis = fig.add_subplot(1, 1, 1)
+    global_polys: List[np.ndarray] = []
+    for panoid, shape in shapes.items():
+        pose = poses[panoid]
+        global_polys.append(_to_global(list(shape), pose))
+        closed = list(shape) + [shape[0]]
+        draw_shape_in_top_down_canvas(axis, closed, "black", pose=pose)
+        draw_camera_in_top_down_canvas(axis, pose, "black", size=10)
+    axis.set_aspect("equal")
+    if filename and fig is not None:
+        fig.savefig(filename)
+    return global_polys

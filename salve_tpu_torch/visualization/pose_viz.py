@@ -8,10 +8,10 @@ the same scene with matplotlib's 3D axes and (by default) saves a PNG — the
 form every other diagnostic in this repo takes; pass show=True for the
 interactive window when a display exists.
 
-A copy of salve_tpu/visualization/pose_viz.py (no JAX). matplotlib is
-imported inside `plot_3d_poses` only, so the modules and CLIs that import
-this one start without it; on a machine without matplotlib the call raises
-an ImportError that names it.
+A copy of salve_tpu/visualization/pose_viz.py (no JAX). matplotlib comes
+through `utils/plotting.py` inside `plot_3d_poses`, so the modules and CLIs
+that import this one start without it; without matplotlib the call raises
+`plotting.MatplotlibMissing`.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from salve_tpu_torch.geometry.poses import Pose3
+from salve_tpu_torch.utils import plotting
 from salve_tpu_torch.utils.colormap import get_redgreen_colormap
 
 _AXIS_COLORS = ("r", "g", "b")  # x, y, z (parity: visualization/utils.py:54-57)
@@ -76,11 +77,7 @@ def plot_3d_poses(
         show: open an interactive window instead of / besides saving.
         title: figure title (e.g. "before Sim(3) alignment").
     """
-    import matplotlib
-
-    if not show:
-        matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = plotting.pyplot("plot_3d_poses", agg=not show)
 
     fig = plt.figure(figsize=(10, 10))
     ax = fig.add_subplot(projection="3d")

@@ -2,8 +2,9 @@
 
 Every `salve_tpu_torch` module and `chip_smoke.py` import neither jax, flax,
 optax, networkx, click, imageio, PIL, cv2, matplotlib, yaml nor msgpack nor
-any `salve_tpu` module (the one plot, `visualization/pose_viz.py`, imports
-matplotlib inside its function), and no build of the port links a JPEG library; the CLIs start with
+any `salve_tpu` module (every figure takes matplotlib through
+`utils/plotting.py`, which imports it inside its functions), and no build
+of the port links a JPEG library; the CLIs start with
 only the standard library, torch, numpy and scipy, and those that reach the
 card take `--device` and parse every flag of their click original; entry points given no
 device run on the CUDA card and raise without one; each CUDA kernel wrapper
@@ -35,10 +36,10 @@ def _port_files():
     return files + [REPO / "chip_smoke.py"]
 
 
-# The one plot the port draws (`--visualize_3d` of evaluate_sfm_baseline)
-# imports matplotlib inside its function, so every module and CLI still
+# Every figure of the port takes matplotlib through the plotting helper,
+# which imports it inside its functions, so every module and CLI still
 # starts without it.
-FUNCTION_LOCAL_IMPORTS = {"salve_tpu_torch/visualization/pose_viz.py": {"matplotlib"}}
+FUNCTION_LOCAL_IMPORTS = {"salve_tpu_torch/utils/plotting.py": {"matplotlib"}}
 
 
 def _imported_roots(path: pathlib.Path):
@@ -70,17 +71,20 @@ def test_port_imports_no_jax_and_no_reference_package():
             if root in FORBIDDEN and not (in_function and root in FUNCTION_LOCAL_IMPORTS.get(rel, ())):
                 bad.append(f"{rel}: {name}")
     assert not bad, bad
-    # The exception is used: pose_viz imports matplotlib, and only there.
-    viz = REPO / "salve_tpu_torch/visualization/pose_viz.py"
-    assert ("matplotlib", True) in set(_imported_roots(viz)) and ("matplotlib", False) not in set(_imported_roots(viz))
+    # The exception is used: the plotting helper imports matplotlib, and only there.
+    helper = REPO / "salve_tpu_torch/utils/plotting.py"
+    roots = {(name.split(".")[0], local) for name, local in _imported_roots(helper)}
+    assert ("matplotlib", True) in roots and ("matplotlib", False) not in roots
 
 
 CARD_CLIS = ["run_sfm", "export_alignment_hypotheses", "test_fused", "stitch_floor_plan", "stitch_floor_plan_clusters",
              "render_dataset_bev", "train", "test", "train_depth", "batch_hohonet_inference", "end_to_end_eval",
-             "register_depth_maps_icp", "eval_floorplan", "evaluate_sfm_baseline"]
+             "register_depth_maps_icp", "eval_floorplan", "evaluate_sfm_baseline", "visualize_backprojected_depthmap",
+             "visualize_floorplans_side_by_side_baselines"]
 HOST_CLIS = ["sanity_check_gt_pose_graphs", "compute_average_zind_stats", "estimate_completion_percent",
              "measure_acc_vs_overlap", "split_vanishing_angle_file", "analyze_predictions", "execute_opensfm",
-             "execute_openmvg"]
+             "execute_openmvg", "analyze_capture_order", "make_precision_recall_plots", "visualize_loss_plot",
+             "vis_zind_annotated_floorplans", "visualize_edge_classifications", "visualize_inferred_layout_w_gt_poses"]
 
 
 def test_clis_start_without_packages_the_card_lacks():
@@ -142,7 +146,7 @@ def test_cli_flags_parse_as_the_click_clis_did(tmp_path):
             run_sfm.build_parser().parse_args(sfm + bad)
 
 
-# The evaluation and analysis CLIs, and the fused scorer's (its
+# The evaluation, analysis and plotting CLIs, and the fused scorer's (its
 # --mesh_devices included): (port module, salve_tpu's click command, argv
 # cases); PATH and FILE stand for an existing directory and file.
 NEW_CLI_CASES = [
@@ -178,6 +182,29 @@ NEW_CLI_CASES = [
      [["--raw_dataset_dir", "PATH", "--openmvg_sfm_bin", "PATH", "--output_dir", "o"],
       ["--raw_dataset_dir", "PATH", "--openmvg_sfm_bin", "PATH", "--output_dir", "o", "--split", "val",
        "--building_id", "1210"]]),
+    ("analyze_capture_order", "run_analyze_capture_order",
+     [["--hypotheses_save_root", "PATH"], ["--hypotheses_save_root", "PATH", "--save_fpath", "h.png"]]),
+    ("make_precision_recall_plots", "run_make_precision_recall_plots",
+     [["--serialized_preds_json_dir", "PATH", "--model_name", "a"],
+      ["--serialized_preds_json_dir", "PATH", "--model_name", "a", "--serialized_preds_json_dir", "PATH",
+       "--model_name", "b", "--save_fpath", "pr.pdf"]]),
+    ("visualize_loss_plot", "run_visualize_loss_plot",
+     [["--train_results_fpath", "FILE"], ["--train_results_fpath", "FILE", "--save_fpath", "l.png"]]),
+    ("vis_zind_annotated_floorplans", "run_vis_zind_annotated_floorplans",
+     [["--raw_dataset_dir", "PATH"], ["--raw_dataset_dir", "PATH", "--save_dir", "s", "--building_id", "0001"]]),
+    ("visualize_backprojected_depthmap", "run_visualize_backprojected_depthmap",
+     [["--depth_fpath", "FILE", "--rgb_fpath", "FILE"],
+      ["--depth_fpath", "FILE", "--rgb_fpath", "FILE", "--save_fpath", "b.png"]]),
+    ("visualize_edge_classifications", "run_visualize_edge_classifications",
+     [["--serialized_preds_json_dir", "PATH", "--hypotheses_save_root", "PATH", "--raw_dataset_dir", "PATH"],
+      ["--serialized_preds_json_dir", "PATH", "--hypotheses_save_root", "PATH", "--raw_dataset_dir", "PATH",
+       "--confidence_threshold", "0.5", "--save_dir", "m"]]),
+    ("visualize_floorplans_side_by_side_baselines", "run_visualize_floorplans_side_by_side_baselines",
+     [["--raw_dataset_dir", "PATH", "--results_dir", "PATH", "--algorithm_name", "openmvg", "--save_dir", "s"]]),
+    ("visualize_inferred_layout_w_gt_poses", "run_visualize_inferred_layout_w_gt_poses",
+     [["--raw_dataset_dir", "PATH", "--mhnet_predictions_data_root", "PATH", "--building_id", "0001"],
+      ["--raw_dataset_dir", "PATH", "--mhnet_predictions_data_root", "PATH", "--building_id", "0001", "--save_dir",
+       "v"]]),
 ]
 
 
@@ -195,6 +222,8 @@ def test_evaluation_cli_flags_parse_as_the_click_clis(tmp_path, cli, command, ca
         argv = [{"PATH": str(tmp_path), "FILE": str(f)}.get(a, a) for a in case]
         got = vars(port.build_parser().parse_args(argv))
         assert got.pop("device", "cuda") == "cuda"
+        # A repeated flag: argparse appends to a list, click gathers a tuple.
+        got = {k: tuple(v) if isinstance(v, list) else v for k, v in got.items()}
         assert got == click_cmd.make_context(cli, list(argv)).params
         assert ("device" in vars(port.build_parser().parse_args(argv))) == (cli in CARD_CLIS)
     bad = list(argv)

@@ -109,9 +109,7 @@ def test_report_matches_salve_tpu(tmp_path, seed):
     est, gt, jest, jgt = _graphs(tmp_path, seed)
     got = report.FloorReconstructionReport.from_est_floor_pose_graph(
         est, gt, plot_save_dir=str(tmp_path / "port"), device="cpu")
-    want = jreport.FloorReconstructionReport.from_est_floor_pose_graph(jest, jgt, plot_save_dir=None)
-    jreport.serialize_predicted_pose_graph(
-        jest.align_by_Sim3_to_ref_pose_graph(jgt)[0], jgt, str(tmp_path / "ref"))
+    want = jreport.FloorReconstructionReport.from_est_floor_pose_graph(jest, jgt, plot_save_dir=str(tmp_path / "ref"))
     assert got.percent_panos_localized == want.percent_panos_localized < 100.0
     assert got.floorplan_iou == want.floorplan_iou > 0.3
     for k in ("avg_abs_rot_err", "avg_abs_trans_err"):
@@ -121,7 +119,13 @@ def test_report_matches_salve_tpu(tmp_path, seed):
     assert (got.building_id, got.floor_id) == (want.building_id, want.floor_id)
     name = f"{seed:04d}__floor_01.json"
     assert (tmp_path / "port_serialized" / name).read_bytes() == (tmp_path / "ref_serialized" / name).read_bytes()
-    assert not list((tmp_path / "port").glob("*"))  # no images
+    # salve_tpu's two figures, the side-by-side floorplans and the IoU masks, byte for byte.
+    figures = [f"{sub}/{seed:04d}_floor_01.jpg" for sub in ("{}", "{}__floorplan_iou")]
+    for fig in figures:
+        assert (tmp_path / fig.format("port")).read_bytes() == (tmp_path / fig.format("ref")).read_bytes()
+    tree = {side: sorted(str(p.relative_to(tmp_path)).replace(side, "X", 1) for p in tmp_path.rglob(f"{side}*/*"))
+            for side in ("port", "ref")}
+    assert tree["port"] == tree["ref"] and len(tree["port"]) == 3
 
     g = report.rasterize_room(est, gt.scale_meters_per_coordinate, 500, 0.1, "cpu")
     w = jreport.rasterize_room(jest, jgt.scale_meters_per_coordinate, 500, 0.1)
