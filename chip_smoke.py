@@ -1,7 +1,8 @@
 """Chip smoke: drive salve_tpu_torch's fused scoring path, Stage A, Stage D,
 stitching, the corpus renderer, verifier training, monocular depth, the
 end-to-end accuracy run, the evaluation CLIs, the mesh of ranks and the
-single-image and single-pair renders on one CUDA card.
+single-image and single-pair renders, and the paper's inference chain
+through the CLIs, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -119,7 +120,7 @@ Phases:
      equal where the CPU's probability is clear of 0.5); the train split's
      tuple order over phase 8's card and CPU trees must be the sorted one
      (its digest and the files' are logged); then the released model's config
-     (`salve_tpu/configs/ceiling_floor_rgb.yaml`: ResNet-152,
+     (`salve_tpu_torch/configs/ceiling_floor_rgb.yaml`: ResNet-152,
      12-channel stem, resize 234 / crop 224, batch 256, bf16, Adam + poly
      LR) through `train()` for 2 epochs host-streamed (256 + 159 tuples a
      train epoch) and 2 epochs on the device corpus (one batch a split and
@@ -241,12 +242,39 @@ Phases:
      `--device cuda` where matplotlib is installed, else the CLI's
      computation), its report equal to the CPU's.
 
+ 15. the paper's inference chain through the port's CLIs, each called
+     through `main(argv)` as a user calls it: (1) `export_alignment_hypotheses
+     --wdo_source ground_truth` for phase 8's floor 0001 (held out of phase
+     9's training) and phase 11's held-out building, card and CPU, equal
+     files; (2) `batch_hohonet_inference` with phase 10's seeded `.pth`
+     (512x1024, float32) over floor 0001's panos into a fresh depth cache,
+     and on the CPU over two of them, the u16 maps within phase 10's bound
+     (1 mm on at most 0.1% of the pixels); (3) `test_fused` with warp
+     renders in three arms: (a) the released width (ResNet-152, 234 / 224,
+     bf16, batch 32) with phase 9's checkpoint on phase 8's depth PNGs, (b)
+     the same on (2)'s cache, (c) phase 11's ResNet-18 (128 / 112) on its
+     held-out building and ground-truth depth: B1, B2 and B3 launch as phase
+     3's rule predicts (B1 and B2 4 a floor, B3 once a batch), and the CPU
+     (`python -m salve_tpu_torch.cli.test_fused --device cpu
+     --use_warp_renders`, one process an arm beside the card's chain)
+     scores each arm's first 32 hypotheses: the same pairs and labels,
+     class-1 probabilities within 1e-2; (4) `run_incremental_reconstruction`
+     on the card and the CPU from the card's batch files, arms (a) and (b)
+     in the frozen configuration, (c) in the configuration the harness froze
+     on its val building, compared as in phase 6; (5) for arm (c)
+     `stitch_building_layouts` on the card's poses and layouts seeded from
+     the building's rooms, card against CPU as in phase 7; then the
+     chain's seconds stage by stage, each arm's % localized and IoU (arm
+     (b)'s depth is a seeded HoHoNet's, so its numbers mean nothing until
+     the released `ep60.pth` is in the repository).
+
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import ctypes
@@ -295,7 +323,7 @@ CORPUS_DIRECT_PAIRS = 64
 CORPUS_LAYOUT_PAIRS = 8
 # Phase 9: training on phase 8's warp-arm corpus, floor 0 the train split and
 # floor 1 the val split; the released model's config.
-TRAIN_CONFIG = "salve_tpu/configs/ceiling_floor_rgb.yaml"
+TRAIN_CONFIG = "salve_tpu_torch/configs/ceiling_floor_rgb.yaml"
 TRAIN_SPLITS = {"0000": "train", "0001": "val"}
 TRAIN_EPOCHS = 2
 FIXED_BATCH = 32
@@ -377,6 +405,20 @@ MESH_STATS_BOUND = 2.0 ** -5
 MESH_PARAM_BOUND = 4e-3
 # Phase 14: pairs of phase 3's panos in the host-array pair batch.
 SINGLE_BATCH_PAIRS = 16
+# Phase 15: the paper's inference chain through the port's CLIs on phase 8's
+# floor 0001, which phase 9 holds out of training (TRAIN_SPLITS), and on
+# phase 11's held-out building. The CPU runs HoHoNet on two panos and scores
+# the first 32 hypotheses of each arm, one batch (ResNet-152 in bf16 is slow
+# on the card machine's CPU: 64 would put the phase over its 60 s). The card
+# renders pano 1 with B3's shear warp and the CPU with the exact gather,
+# which differ on up to 5e-5 of the pixels (tests/parity/test_warp_drift.py),
+# and both score in bf16, as the CLI builds the verifier: class-1
+# probabilities within 1e-2 (on an H100 80GB HBM3 at 700 W, 7.165e-4 and
+# 8.687e-4 through ResNet-152, 3.687e-3 through ResNet-18 at 112), labels
+# equal where clear of 0.5 by it.
+CHAIN_FLOOR = CORPUS_FLOORS[1]
+CHAIN_CPU_HYPS = 32
+CHAIN_PROB_BOUND = 1e-2
 
 REPLACES = {
     "splat": "salve_tpu/ops/pallas_splat.py:77",
@@ -691,6 +733,8 @@ def run(dev) -> dict:
         report["mesh"] = mesh_phase(dev, Path(tmp), Path(tmp) / "corpus" / "warp_card", scored, depths, rgbs, banks,
                                     render_cfg)
         report["single"] = single_render_phase(dev, Path(tmp), depths_np, rgbs_np, report["stage_d"])
+        report["chain"] = chain_phase(dev, Path(tmp), sorted(Path(tmp).glob("training/streamed/*/train_ckpt.pt"))[-1],
+                                      Path(tmp) / "hohonet" / "ep60_seeded.pth", Path(tmp) / "e2e")
     for name, row in report["kernels"].items():
         row["launches_corpus"] = {arm: report["corpus"][f"{arm}_card"]["launches"][name] for arm in ("warp", "direct")}
         row["launches_depth"] = {"hohonet": report["depth"]["hohonet"]["launches"][name],
@@ -705,6 +749,7 @@ def run(dev) -> dict:
         row["launches_single"] = {k: v[name] for k, v in report["single"]["launches"].items()}
         if name in report["single"]["kernels"]:
             row["extra"]["batch_1"] = report["single"]["kernels"][name]
+        row["launches_chain"] = {arm: launches[name] for arm, launches in report["chain"]["launches"].items()}
     return report
 
 
@@ -1105,18 +1150,28 @@ def compare_stage_d_runs(what: str, card, cpu, card_dir: Path, cpu_dir: Path) ->
 
     if len(card) != len(cpu) or not card:
         raise AssertionError(f"{what}: {len(card)} reports on the card, {len(cpu)} on the CPU")
+
+    def same(x, y) -> bool:  # a floor without edges reports NaN errors and shares
+        return x == y or (x != x and y != y)
+
     worst = {"errors": 0.0, "poses": 0.0}
     for a, b in zip(card, cpu):
         for k in ("building_id", "floor_id", "percent_panos_localized", "percent_in_top2_ccs",
                   "percent_in_top3_ccs", "floorplan_iou"):
-            if getattr(a, k) != getattr(b, k):
+            if not same(getattr(a, k), getattr(b, k)):
                 raise AssertionError(f"{what}: {k} is {getattr(a, k)} on the card, {getattr(b, k)} on the CPU")
-        errs = [abs(a.avg_abs_rot_err - b.avg_abs_rot_err), abs(a.avg_abs_trans_err - b.avg_abs_trans_err),
-                float(np.max(np.abs(a.rotation_errors - b.rotation_errors))),
-                float(np.max(np.abs(a.translation_errors - b.translation_errors)))]
-        worst["errors"] = max(worst["errors"], *errs)
+        pairs = [(a.avg_abs_rot_err, b.avg_abs_rot_err), (a.avg_abs_trans_err, b.avg_abs_trans_err)]
+        if a.rotation_errors is not None or b.rotation_errors is not None:
+            pairs += [(a.rotation_errors, b.rotation_errors), (a.translation_errors, b.translation_errors)]
+        for x, y in pairs:
+            x, y = np.asarray(x, dtype=np.float64), np.asarray(y, dtype=np.float64)
+            if x.shape != y.shape or not np.array_equal(np.isnan(x), np.isnan(y)):
+                raise AssertionError(f"{what}: floor {a.building_id}: pose errors {x} on the card, {y} on the CPU")
+            if x.size and not np.isnan(x).all():
+                worst["errors"] = max(worst["errors"], float(np.nanmax(np.abs(x - y))))
     files = sorted(p.name for p in card_dir.glob("*.json"))
-    if not files or files != sorted(p.name for p in cpu_dir.glob("*.json")):
+    localized = any(r.percent_panos_localized > 0 for r in card)
+    if (localized and not files) or files != sorted(p.name for p in cpu_dir.glob("*.json")):
         raise AssertionError(f"{what}: serialized poses {files} differ in their files")
     for name in files:
         a, b = (json.loads((d / name).read_text())["wSi_dict"] for d in (card_dir, cpu_dir))
@@ -3469,6 +3524,275 @@ def mesh_phase(dev, root: Path, corpus: Path, scored: dict, depths, rgbs, banks,
     return out
 
 
+def read_batches(preds: Path) -> dict:
+    """The `batch_{i}.json` files of `preds` in index order, as one dict of lists."""
+    out = {k: [] for k in ("y_hat", "y_true", "y_hat_probs", "fp0", "fp1")}
+    for f in sorted(preds.glob("batch_*.json"), key=lambda f: int(f.stem.split("_")[1])):
+        data = json.loads(f.read_text())
+        for k in out:
+            out[k] += data[k]
+    return out
+
+
+def class1_probs(batches: dict):
+    import numpy as np
+
+    y, p = np.array(batches["y_hat"]), np.array(batches["y_hat_probs"], dtype=np.float64)
+    return np.where(y == 1, p, 1.0 - p)
+
+
+def chain_phase(dev, root: Path, verifier_ckpt: Path, hohonet_ckpt: Path, e2e_dir: Path) -> dict:
+    """Phase 15: the paper's inference chain through the port's CLIs (module
+    docstring). `root` holds phase 8's ZInD tree and depth PNGs,
+    `verifier_ckpt` is phase 9's checkpoint, `hohonet_ckpt` phase 10's
+    seeded `.pth` and `e2e_dir` phase 11's harness tree (its held-out
+    building, ground-truth depth and ResNet-18 checkpoint)."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.cli import batch_hohonet_inference, export_alignment_hypotheses, test_fused
+    from salve_tpu_torch.cli.run_sfm import run_incremental_reconstruction
+    from salve_tpu_torch.cli.stitch_floor_plan import stitch_building_layouts
+    from salve_tpu_torch.dataset import seeded_stitching
+    from salve_tpu_torch.native import png
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cpu = torch.device("cpu")
+    work = root / "chain"
+    sides = (("card", dev), ("cpu", cpu))
+    out = {"seconds_card": {}, "seconds_cpu": {}, "launches": {}, "predicted": {}, "arms": {}}
+
+    def timed(side, stage, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out[f"seconds_{side}"][stage] = time.perf_counter() - t0
+        return got
+
+    def took(stage):
+        return f"card {out['seconds_card'][stage]:.2f} s, CPU {out['seconds_cpu'][stage]:.2f} s"
+
+    # 1. W/D/O hypotheses from the ground truth, through the exporter's CLI.
+    def export(zind, bid):
+        hyp = {side: work / f"hyp_{bid}_{side}" for side, _ in sides}
+        for side, d in sides:
+            timed(side, f"hypotheses_{bid}", lambda: export_alignment_hypotheses.main([
+                "--raw_dataset_dir", str(zind), "--hypotheses_save_root", str(hyp[side]), "--wdo_source",
+                "ground_truth", "--split", "test", "--building_id", bid, "--num_processes", "1", "--device", d.type]))
+        trees = {side: file_tree(hyp[side]) for side in hyp}
+        # Hypotheses a floor in the two label directories test_fused.py scores.
+        counts = {}
+        for name in trees["card"]:
+            _, floor, label, _ = name.split("/")
+            if label in ("gt_alignment_approx", "incorrect_alignment"):
+                counts[floor] = counts.get(floor, 0) + 1
+        if trees["card"] != trees["cpu"] or not counts:
+            raise AssertionError(f"phase 15: building {bid}'s hypothesis files differ between the card and the CPU")
+        log(f"phase 15: (1) export_alignment_hypotheses --wdo_source ground_truth, building {bid}: "
+            f"{len(trees['card'])} files, {counts} to score; card = CPU byte for byte ({took(f'hypotheses_{bid}')})")
+        return hyp["card"], counts
+
+    # The arms: (a) the released width (test_fused's defaults: ResNet-152,
+    # resize 234, crop 224, batch 32) with phase 9's checkpoint on phase 8's
+    # depth PNGs, (b) the same on the cache stage 2 fills, (c) phase 11's
+    # verifier on its held-out building; each with warp renders (the CPU's
+    # default is direct renders).
+    zind_c, bid_c = e2e_dir / "zind", E2E_BUILDINGS[1]
+    depth_b = work / "depth_hohonet"
+    harness_run = json.loads((e2e_dir / "end_to_end_eval.json").read_text())
+    hyp_a, counts_a = export(root / "zind", CHAIN_FLOOR)
+    hyp_c, counts_c = export(zind_c, bid_c)
+    arms = {"a": (CHAIN_FLOOR, root / "zind", hyp_a, counts_a, root / "depth", verifier_ckpt, []),
+            "b": (CHAIN_FLOOR, root / "zind", hyp_a, counts_a, depth_b, verifier_ckpt, []),
+            "c": (bid_c, zind_c, hyp_c, counts_c, e2e_dir / "depth", sorted((e2e_dir / "ckpts").glob(
+                "*/train_ckpt.pt"))[-1], ["--num_layers", "18", "--resize_px", "128", "--crop_px", "112"])}
+    # Stage D in the frozen configuration (module docstring, phase 6); arm (c)
+    # in the one phase 11's harness froze on its val building for its verifier.
+    frozen = dict(method="pose2_slam", confidence_threshold=STAGE_D_THRESHOLD, rescue_clusters=True)
+    configs = {"a": frozen, "b": frozen, "c": dict(
+        method=harness_run["method"], confidence_threshold=harness_run["confidence_threshold"],
+        rescue_clusters=harness_run["rescue_clusters"], filter_edges_by_global_local_consistency=harness_run["glc"],
+        resolve_rot_conflicts=harness_run["rotfix"])}
+    notes = {
+        "a": "phase 9's checkpoint has had 4 steps, and these panos (synthetic_bank) are not ray-cast from the "
+             "floor's rooms, so no verifier could tell a true alignment here",
+        "b": "arm (b)'s depth is a seeded HoHoNet's: its renders, scores, poses and IoU mean nothing until "
+             "HoHoNet's released ep60.pth is in the repository",
+        "c": f"phase 11's verifier on its held-out building {bid_c} (panos ray-cast from its rooms); the harness's "
+             "own rows, from its JPEG corpus: " + "; ".join(
+                 f"{r['floor_id']} localized {r['percent_panos_localized']:.2f}%, IoU {r['floorplan_iou']:.6f}"
+                 for r in harness_run["reconstruction"]),
+    }
+
+    def fused_argv(arm, hyp, preds, device):
+        bid, zind, _, _, depth_root, ckpt, flags = arms[arm]
+        return ["--raw_dataset_dir", str(zind), "--depth_save_root", str(depth_root), "--ckpt_fpath", str(ckpt),
+                "--building_id", bid, "--use_warp_renders", *flags, "--hypotheses_save_root", str(hyp),
+                "--serialization_save_dir", str(preds), "--device", device]
+
+    # The CPU scores each arm's first hypotheses beside the card's chain: one
+    # process an arm (`python -m salve_tpu_torch.cli.test_fused ... --device
+    # cpu`, as a user runs it), started as soon as its inputs exist, each on
+    # a share of the host's cores.
+    repo = Path(__file__).resolve().parent
+    threads = str(-(-(os.cpu_count() or 8) // len(arms)))
+    cpu_runs = {}
+    waiter = concurrent.futures.ThreadPoolExecutor(len(arms))
+
+    def start_cpu_scoring(arm):
+        bid, _, hyp, _, _, _, _ = arms[arm]
+        prefix = work / f"hyp_{bid}_prefix"
+        if not prefix.exists():
+            subset_hypotheses(hyp, prefix, bid, CHAIN_CPU_HYPS)
+        log_f = open(work / f"cpu_scoring_{arm}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "salve_tpu_torch.cli.test_fused", *fused_argv(arm, prefix, work / f"preds_{arm}_cpu",
+                                                                               "cpu")],
+            cwd=repo, env=dict(os.environ, OMP_NUM_THREADS=threads), stdout=log_f, stderr=subprocess.STDOUT)
+        cpu_runs[arm] = (proc, time.perf_counter(), log_f, waiter.submit(lambda: (proc.wait(), time.perf_counter())))
+
+    try:
+        start_cpu_scoring("a")
+        start_cpu_scoring("c")
+
+        # 2. The depth cache: HoHoNet (phase 10's seeded .pth, 512x1024,
+        # float32) over the floor's panos on the card; the CPU fills a cache
+        # of the first two.
+        panos = sorted((root / "zind" / CHAIN_FLOOR / "panos").glob("*.jpg"))
+        sub = work / "zind_cpu"
+        (sub / CHAIN_FLOOR / "panos").mkdir(parents=True)
+        for f in panos[:DEPTH_CHECK_PANOS]:
+            shutil.copy(f, sub / CHAIN_FLOOR / "panos" / f.name)
+        for (side, d), zind, depth_root, want in zip(sides, (root / "zind", sub), (depth_b, work / "depth_hohonet_cpu"),
+                                                     (len(panos), DEPTH_CHECK_PANOS)):
+            ready = timed(side, "depth", lambda: batch_hohonet_inference.main([
+                "--raw_dataset_dir", str(zind), "--depth_save_root", str(depth_root), "--building_id", CHAIN_FLOOR,
+                "--model_ckpt", str(hohonet_ckpt), "--device", d.type]))
+            if ready != (want, 0):
+                raise AssertionError(f"phase 15: batch_hohonet_inference on the {side} returned {ready} for {want} "
+                                     "panos")
+        start_cpu_scoring("b")
+        worst_mm, off, n = 0, 0, 0
+        for f in panos[:DEPTH_CHECK_PANOS]:
+            a, b = (png.read_png(d / CHAIN_FLOOR / f"{f.stem}.depth.png").astype(np.int64)
+                    for d in (depth_b, work / "depth_hohonet_cpu"))
+            worst_mm, off, n = max(worst_mm, int(np.abs(a - b).max())), off + int((a != b).sum()), n + a.size
+        out["depth"] = {"panos": len(panos), "max_mm": worst_mm, "off_share": off / n}
+        log(f"phase 15: (2) batch_hohonet_inference over floor {CHAIN_FLOOR}'s {len(panos)} panos on the card, "
+            f"{DEPTH_CHECK_PANOS} on the CPU: u16 maps at most {worst_mm} mm apart on {100 * off / n:.4f}% of the "
+            f"pixels (phase 10's bound: 1 mm on 0.1%) ({took('depth')})")
+        if worst_mm > 1 or off / n > 1e-3:
+            raise AssertionError(f"phase 15: the card's depth cache disagrees with the CPU's: {out['depth']}")
+
+        # 3-5 on the card, each arm: test_fused, Stage D on the card's batch
+        # files on the card and the CPU, and for arm (c) stitching.
+        for arm, (bid, zind, hyp, counts, _, _, flags) in arms.items():
+            row = out["arms"][arm] = {"building": bid, "floors": counts, "stage_d": configs[arm]}
+            # Phase 3's rule in warp mode: B1 and B2 once a bank (identity and
+            # extended, ceiling and floor: 4 a floor), B3 once a batch of 32.
+            predicted = {"splat": 4 * len(counts), "fill": 4 * len(counts),
+                         "warp": sum(-(-c // 32) for c in counts.values())}
+            device_mod.reset_launch_counts()
+            timed("card", f"scoring_{arm}", lambda: test_fused.main(fused_argv(arm, hyp, work / f"preds_{arm}_card",
+                                                                                "cuda")))
+            out["launches"][arm], out["predicted"][arm] = device_mod.launch_counts(), predicted
+            log(f"phase 15: (3{arm}) test_fused ({'ResNet-18, 128 / 112' if flags else 'ResNet-152, 234 / 224'}, "
+                f"bf16, batch 32, warp renders) over building {bid}'s {sum(counts.values())} hypotheses in "
+                f"{out['seconds_card'][f'scoring_{arm}']:.2f} s: launches {out['launches'][arm]}, predicted {predicted}")
+            if out["launches"][arm] != predicted:
+                raise AssertionError(f"phase 15: ({arm}) launches {out['launches'][arm]}, predicted {predicted}")
+            reports = {}
+            for side, d in sides:
+                reports[side] = timed(side, f"stage_d_{arm}", lambda: run_incremental_reconstruction(
+                    hypotheses_save_root=str(hyp), serialized_preds_json_dir=str(work / f"preds_{arm}_card"),
+                    raw_dataset_dir=str(zind), allowed_wdo_types=STAGE_D_WDO_TYPES, use_axis_alignment=False,
+                    predictions_data_root=None, plot_save_dir=str(work / f"sfm_{arm}_{side}"), device=d,
+                    **configs[arm]))
+            worst = compare_stage_d_runs(f"phase 15 ({arm})", reports["card"], reports["cpu"],
+                                         work / f"sfm_{arm}_card_serialized", work / f"sfm_{arm}_cpu_serialized")
+            row["reports"] = [{"floor": r.floor_id, "localized_pct": r.percent_panos_localized,
+                               "iou": r.floorplan_iou, "rot_err_deg": r.avg_abs_rot_err,
+                               "trans_err_m": r.avg_abs_trans_err} for r in reports["card"]]
+            row.update(worst_error_diff=worst["errors"], worst_pose_diff=worst["poses"])
+            log(f"phase 15: (4{arm}) Stage D ({configs[arm]}) on the card's batch files: " + "; ".join(
+                f"{bid} {r['floor']} localized {r['localized_pct']:.2f}%, IoU {r['iou']:.6f}" for r in row["reports"])
+                + f"; card = CPU (errors within {worst['errors']:.1e}, poses within {worst['poses']:.1e}; "
+                f"{took(f'stage_d_{arm}')}); {notes[arm]}")
+            if arm != "c":
+                continue
+            seeded_stitching.write_layout_predictions(
+                work / "layouts", bid, json.loads((zind / bid / "zind_data.json").read_text()), E2E_BASE_SEED)
+            sers = sorted((work / "sfm_c_card_serialized").glob(f"{bid}__*.json"))
+            if not sers:
+                raise AssertionError(f"phase 15: Stage D localized no pano of building {bid}: no poses to stitch")
+            row["stitched_groups"] = {}
+            for ser in sers:
+                stitched = {}
+                for side, d in sides:
+                    stitched[side] = timed(side, f"stitching_{ser.stem}", lambda: stitch_building_layouts(
+                        bid, str(work / "layouts"), str(zind), str(ser), str(work / f"stitch_{side}_{ser.stem}"),
+                        device=d))
+                (shapes, rings), (shapes_cpu, rings_cpu) = stitched["card"], stitched["cpu"]
+                if fused_key(shapes) != fused_key(shapes_cpu) or not all(
+                        np.array_equal(x, y) for g, h in zip(rings, rings_cpu) for x, y in zip(g, h)):
+                    raise AssertionError(f"phase 15: (5) a stitched shape of {ser.stem} differs between the card and "
+                                         "the CPU")
+                row["stitched_groups"][ser.stem] = [len(g) for g in shapes]
+                log(f"phase 15: (5) stitch_building_layouts on {ser.stem}'s card poses and seeded layouts: room "
+                    f"groups {row['stitched_groups'][ser.stem]}, card = CPU (fused shapes and rings bit for bit; "
+                    f"{took(f'stitching_{ser.stem}')})")
+
+        # 3, the CPU's side: each arm's first hypotheses against the card's.
+        for arm, (proc, started, log_f, waited) in cpu_runs.items():
+            rc, ended = waited.result(timeout=600)
+            out["seconds_cpu"][f"scoring_{arm}"] = ended - started
+            if rc != 0:
+                log_f.flush()
+                raise AssertionError(f"phase 15: ({arm}) test_fused on the CPU exited {rc}: "
+                                     + (work / f"cpu_scoring_{arm}.log").read_text()[-3000:])
+            got, ref = read_batches(work / f"preds_{arm}_card"), read_batches(work / f"preds_{arm}_cpu")
+            counts, row = arms[arm][3], out["arms"][arm]
+            k = len(ref["y_hat"])
+            if len(got["y_hat"]) != sum(counts.values()) or k != min(CHAIN_CPU_HYPS, next(iter(counts.values()))):
+                raise AssertionError(f"phase 15: ({arm}) {len(got['y_hat'])} scores on the card, {k} on the CPU")
+            if [got[f][:k] for f in ("fp0", "fp1", "y_true")] != [ref[f] for f in ("fp0", "fp1", "y_true")]:
+                raise AssertionError(f"phase 15: ({arm}) the batch files name other pairs on the card and the CPU")
+            p_card, p_cpu = class1_probs(got)[:k], class1_probs(ref)
+            diff = float(np.abs(p_card - p_cpu).max())
+            clear = np.abs(p_cpu - 0.5) > CHAIN_PROB_BOUND
+            y = np.array(got["y_hat"])
+            row.update(prob_max_abs_diff=diff, compared=k, clear_of_half=int(clear.sum()),
+                       y_hat_flips=int(np.sum((p_card > 0.5) != (p_cpu > 0.5))), positive_share=float(np.mean(y)),
+                       above_threshold=int(np.sum((y == 1) & (np.array(got["y_hat_probs"]) >= STAGE_D_THRESHOLD))),
+                       verifier_acc=float(np.mean(y == np.array(got["y_true"]))))
+            log(f"phase 15: (3{arm}) card against CPU on the first {k} hypotheses (the CPU's process "
+                f"{out['seconds_cpu'][f'scoring_{arm}']:.2f} s on {threads} threads): class-1 probabilities max |diff| "
+                f"{diff:.3e} (bound {CHAIN_PROB_BOUND}), y_hat flips {row['y_hat_flips']} ({row['clear_of_half']} "
+                f"clear of 0.5 by the bound); on the card y_hat = 1 for {100 * row['positive_share']:.1f}%, "
+                f"{row['above_threshold']} positives at or above {STAGE_D_THRESHOLD}, labels right for "
+                f"{100 * row['verifier_acc']:.1f}%")
+            if diff > CHAIN_PROB_BOUND or not np.array_equal((p_card > 0.5)[clear], (p_cpu > 0.5)[clear]):
+                raise AssertionError(f"phase 15: ({arm}) the card's scores disagree with the CPU's: {row}")
+    finally:
+        for proc, _, log_f, _ in cpu_runs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log_f.close()
+        waiter.shutdown()
+
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15: {card}: the chain on the card, s by stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["seconds_card"].items())
+        + f" (sum {sum(out['seconds_card'].values()):.3f}); the CPU's checks: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["seconds_cpu"].items())
+        + f"; the phase {out['seconds']:.1f} s")
+    return out
+
+
 class _Records(logging.Handler):
     """Keeps the records it is given (phase 14 counts the figures' warnings)."""
 
@@ -3774,10 +4098,14 @@ def main() -> int:
     log(f"throughput: phase 14, B1 {sg['kernels']['splat']['ms']:.4f} ms and B2 {sg['kernels']['fill']['ms']:.4f} ms "
         f"at B = 1 (501^2; bounds {sg['kernels']['splat']['bound_ms']:.4f} and {sg['kernels']['fill']['bound_ms']:.4f} "
         f"ms); the phase {sg['seconds']:.1f} s")
+    ch = report["chain"]
+    log(f"throughput: phase 15, the inference chain on floor {CHAIN_FLOOR} through the CLIs: "
+        f"{sum(ch['seconds_card'].values()):.1f} s on the card (" + ", ".join(
+            f"{k} {v:.2f}" for k, v in ch["seconds_card"].items()) + f"); the phase {ch['seconds']:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
-            "launches_corpus", "launches_depth", "launches_e2e", "launches_mesh", "launches_single", "shape",
-            "extra")
+            "launches_corpus", "launches_depth", "launches_e2e", "launches_mesh", "launches_single",
+            "launches_chain", "shape", "extra")
     rows = [{kk: row.get(kk) for kk in keys} for row in report["kernels"].values()]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

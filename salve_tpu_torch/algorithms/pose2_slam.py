@@ -217,11 +217,16 @@ class _Problem:
         return torch.func.jacfwd(self.res_local)(torch.zeros_like(state), state)
 
 
-def lm_step(prob: _Problem, state, lam, c_prev, eye):
+def linearize(prob: _Problem, state):
+    """(Jacobian, residuals) at `state`: what an LM step solves with."""
+    return prob.jacobian(state), prob.res_at(state)
+
+
+def lm_step(prob: _Problem, state, lam, c_prev, eye, linearized=None):
     """One Levenberg-Marquardt iteration; the accept/reject stays on the
-    device. Returns (state, lam, c_prev)."""
-    J = prob.jacobian(state)
-    r = prob.res_at(state)
+    device. `linearized` is `linearize(prob, state)` where the caller holds
+    it. Returns (state, lam, c_prev, accept)."""
+    J, r = linearize(prob, state) if linearized is None else linearized
     A = J.T @ J + lam * eye
     g = J.T @ r
     delta = -torch.linalg.solve_ex(A, g)[0]
@@ -231,7 +236,7 @@ def lm_step(prob: _Problem, state, lam, c_prev, eye):
     state = torch.where(accept, new_state, state)
     lam = torch.where(accept, lam / LAMBDA_FACTOR, lam * LAMBDA_FACTOR)
     c_prev = torch.where(accept, c_new, c_prev)
-    return state, lam, c_prev
+    return state, lam, c_prev, accept
 
 
 def lm_start(poses0, landmarks0, odo_idx, odo_meas, brm_idx, brm_meas, use_robust):
@@ -255,8 +260,19 @@ def lm_solve(
     """Levenberg-Marquardt over the flattened (poses, landmarks) state, on
     the inputs' device; the prior is on pose 0. No host sync inside."""
     prob, (state, lam, c_prev, eye) = lm_start(poses0, landmarks0, odo_idx, odo_meas, brm_idx, brm_meas, use_robust)
+    # A rejected step keeps the state, and with it the Jacobian and the
+    # residuals. On the host the verdict costs nothing to read, so the CPU
+    # linearizes again only after an accepted step (every step of a floor
+    # whose prior residual is 0 is NaN and rejected); the card's loop never
+    # waits for the verdict.
+    on_host = state.device.type == "cpu"
+    linearized = None
     for _ in range(MAX_LM_ITERS):
-        state, lam, c_prev = lm_step(prob, state, lam, c_prev, eye)
+        if on_host and linearized is None:
+            linearized = linearize(prob, state)
+        state, lam, c_prev, accept = lm_step(prob, state, lam, c_prev, eye, linearized)
+        if on_host and bool(accept):
+            linearized = None
     return prob.unpack(state)
 
 

@@ -5,7 +5,7 @@ y_hat_probs / fp0 / fp1), the Stage C -> Stage D interface, and prints
 `precision=... recall=... mAcc=...`. The click original's options on
 argparse, plus `--device` (default cuda).
 
-    python -m salve_tpu_torch.cli.test --config_fpath salve_tpu/configs/ceiling_floor_rgb.yaml \\
+    python -m salve_tpu_torch.cli.test --config_fpath salve_tpu_torch/configs/ceiling_floor_rgb.yaml \\
         --ckpt_fpath OUT/<run>/train_ckpt.pt --data_root BEV_ROOT --split test --serialization_save_dir PREDS
 """
 

@@ -8,7 +8,7 @@ run alone, the CLI starts the N ranks (parallel/mesh.py:launch; gloo ranks
 on the CPU with `--device cpu`); inside a process group of N (torchrun) it
 joins it.
 
-    python -m salve_tpu_torch.cli.train --config_fpath salve_tpu/configs/ceiling_floor_rgb.yaml \\
+    python -m salve_tpu_torch.cli.train --config_fpath salve_tpu_torch/configs/ceiling_floor_rgb.yaml \\
         --data_root BEV_ROOT --model_save_dirpath OUT
 """
 

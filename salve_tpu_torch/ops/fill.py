@@ -23,29 +23,23 @@ DEFAULT_MASK_KERNEL = 11
 FILL_ITERS = 6
 
 
-def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """Zero-padded shift of (..., H, W) planes: out[y, x] = x[y - dy, x - dx]."""
-    h, w = x.shape[-2:]
-    out = torch.zeros_like(x)
-    ys, yd = (slice(0, h - dy), slice(dy, h)) if dy >= 0 else (slice(-dy, h), slice(0, h + dy))
-    xs, xd = (slice(0, w - dx), slice(dx, w)) if dx >= 0 else (slice(-dx, w), slice(0, w + dx))
-    out[..., yd, xd] = x[..., ys, xs]
-    return out
-
-
 def box_sum(x: torch.Tensor, k: int) -> torch.Tensor:
     """Separable k x k box sum of (..., H, W) planes, zero-padded.
 
     Rows first, ((x + x[y-1]) + x[y+1]) + ..., then columns the same way —
-    the order of salve_tpu/ops/pallas_fill.py:_box_sum.
+    the order of salve_tpu/ops/pallas_fill.py:_box_sum. A neighbour outside
+    the plane adds nothing (the reference adds its zero padding, which
+    leaves every sum as it is).
     """
     r = k // 2
-    rows = x
+    rows = x.clone()
     for d in range(1, r + 1):
-        rows = rows + _shift(x, d, 0) + _shift(x, -d, 0)
-    out = rows
+        rows[..., d:, :] += x[..., :-d, :]
+        rows[..., :-d, :] += x[..., d:, :]
+    out = rows.clone()
     for d in range(1, r + 1):
-        out = out + _shift(rows, 0, d) + _shift(rows, 0, -d)
+        out[..., :, d:] += rows[..., :, :-d]
+        out[..., :, :-d] += rows[..., :, d:]
     return out
 
 
@@ -60,15 +54,13 @@ def fill_holes(sparse: torch.Tensor, occupied: torch.Tensor, iters: int = FILL_I
     cells the 3x3 box average of filled neighbours. Plain torch on any
     device."""
     lead, (h, w) = sparse.shape[:-3], sparse.shape[-3:-1]
-    img = sparse.reshape(-1, h, w, 3).permute(0, 3, 1, 2).to(torch.float32)  # (B, 3, H, W)
+    img = sparse.reshape(-1, h, w, 3).permute(0, 3, 1, 2).to(torch.float32).contiguous()  # (B, 3, H, W)
     o = occupied.reshape(-1, 1, h, w).to(torch.float32)  # (B, 1, H, W)
     for _ in range(iters):
         den = box_sum(o, 3)
-        num = box_sum(img * o, 3)
-        fill = num / torch.clamp(den, min=1.0)
-        new_o = torch.clamp(den, 0.0, 1.0)
+        fill = box_sum(img * o, 3).div_(torch.clamp(den, min=1.0))
         img = torch.where(o > 0, img, fill)
-        o = torch.maximum(o, new_o)
+        o = torch.maximum(o, den.clamp_(0.0, 1.0))
     return img.permute(0, 2, 3, 1).reshape(lead + (h, w, 3))
 
 

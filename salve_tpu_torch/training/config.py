@@ -4,8 +4,8 @@ Defaults follow the best released model's config: ResNet-152, batch 256,
 234 -> 224 crops, ceiling+floor RGB modalities, bf16 compute.
 
 `load_training_config` reads the reference's hydra YAML files without
-PyYAML (the card's machine has none): a reader of the subset that
-salve_tpu/configs/*.yaml use — one top-level `TrainingConfig:` mapping of
+PyYAML (the card's machine has none): a reader of the subset that the
+port's copies of them, salve_tpu_torch/configs/*.yaml, use — one top-level `TrainingConfig:` mapping of
 scalars, empty values and flow lists, with comments — that resolves each
 scalar as PyYAML's safe loader does and raises, naming the line, on
 anything else.

@@ -39,6 +39,7 @@ from salve_tpu_torch.cli import (
 from salve_tpu_torch.dataset.seeded_predictions import write_seeded_mhnet_predictions
 
 from test_torch_stage_d import make_stage_d_inputs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Buildings 0000 and 0001 lie in the train split (dataset/zind_partition.json).
 FLOORS = [(0, {"n_rows": 2, "n_cols": 2}), (1, {"n_rows": 1, "n_cols": 3})]

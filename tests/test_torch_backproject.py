@@ -14,6 +14,7 @@ from salve_tpu.geometry.pano_projection import get_uni_sphere_xyz as jax_rays
 from salve_tpu.ops import backproject as jbp
 from salve_tpu_torch.geometry.pano_projection import get_uni_sphere_xyz
 from salve_tpu_torch.ops import backproject as tbp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("h,w", [(64, 128), (512, 1024)])

@@ -43,6 +43,7 @@ from salve_tpu_torch.training import device_corpus as tdc
 from salve_tpu_torch.training import transforms as tt
 from salve_tpu_torch.training.config import TrainingConfig
 from torch_parallel_work import FakeDataset
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TRAIN_IDS = sorted(DATASET_SPLITS["train"], key=int)[:2]

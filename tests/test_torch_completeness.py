@@ -15,6 +15,7 @@ allow-list:
 
 import ast
 import pathlib
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 REF, PORT = REPO / "salve_tpu", REPO / "salve_tpu_torch"

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from salve_tpu_torch.rendering import dataset_renderer as port
+from torch_threads import child_env, one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 BID = "9990"
@@ -191,7 +192,7 @@ def test_cli_runs_without_jax_imageio_pil_cv2_and_click(building, reference_tree
     }
     for arm, extra in runs.items():
         proc = subprocess.run([sys.executable, "-c", RUN, json.dumps(HIDDEN), json.dumps(base + extra)], cwd=REPO,
-                              capture_output=True, text=True, timeout=600)
+                              capture_output=True, text=True, timeout=600, env=child_env())
         assert proc.returncode == 0, proc.stderr[-3000:]
         assert "Rendered" in proc.stdout
         assert _tree(tmp_path / arm) == reference_trees[arm], arm

@@ -30,6 +30,7 @@ from salve_tpu_torch.depth import cache
 from salve_tpu_torch.models import hohonet as th
 from salve_tpu_torch.native import png
 from test_torch_depth_synthetic import write_floors
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HW = (128, 256)
 

@@ -38,6 +38,9 @@ from salve_tpu_torch.models import depth_net
 from salve_tpu_torch.models.weights import depth_net_state_dict_from_flax
 from salve_tpu_torch.training import depth as tdepth
 from test_torch_depth_synthetic import BIDS, write_floors
+# torch keeps its default thread count here (no `torch_threads` fixture): the
+# float32 step's early trunk gradients cancel heavily, and how many threads sum
+# them moves them against their 2e-2 bound.
 
 HW = (64, 128)
 SMALL = dict(num_layers=18, embed_dim=64, num_blocks=1)

@@ -33,6 +33,7 @@ from salve_tpu_torch.models import depth_net
 from salve_tpu_torch.native import jpeg
 from salve_tpu_torch.rendering import synthetic
 from salve_tpu_torch.training import depth as tdepth
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HW = (32, 64)
 BIDS = ("0000", "0001")

@@ -53,6 +53,7 @@ from salve_tpu_torch.dataset.zind_partition import DATASET_SPLITS
 from salve_tpu_torch.native import png
 from test_torch_bev_pairs import listing_sorted, listing_sorted_make_dataset
 from test_torch_training import _decode_like_salve_tpu_native, _one_jax_device
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TRAIN, EVAL = "0000", "1210"
 VAL = [b for b in sorted(DATASET_SPLITS["val"]) if b not in (TRAIN, EVAL)][0]

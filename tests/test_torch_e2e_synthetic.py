@@ -34,6 +34,7 @@ from salve_tpu_torch.dataset import synthetic_zind as tsz
 from salve_tpu_torch.dataset.procedural import generate_building_json
 from salve_tpu_torch.native import jpeg, png
 from salve_tpu_torch.rendering import synthetic as tsyn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BID = "0000"
 FLOOR = "floor_01"

@@ -18,6 +18,7 @@ from salve_tpu.ops import bev as jbev
 from salve_tpu.ops.pallas_fill import fill_and_mask_batched
 from salve_tpu_torch.ops import bev as tbev
 from salve_tpu_torch.ops import fill
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _sparse(seed, b=2, h=61, w=77, density=0.1):

@@ -33,6 +33,7 @@ from salve_tpu_torch.models.weights import state_dict_from_flax
 from salve_tpu_torch.pipeline.fused_inference import score_floor_hypotheses
 from salve_tpu_torch.rendering.bev_pair import BEVRenderConfig
 from salve_tpu_torch.training.config import TrainingConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(num_layers=18, resize_h=64, resize_w=64, train_h=56, train_w=56,
             modalities=("ceiling_rgb_texture", "floor_rgb_texture"), compute_dtype="float32")

@@ -14,6 +14,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from salve_tpu_torch.utils import graph
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @st.composite

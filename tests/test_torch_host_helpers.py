@@ -39,6 +39,7 @@ from salve_tpu.utils import transform as j_tf
 from salve_tpu_torch.ops.backproject import resize_pano_nearest
 from salve_tpu_torch.utils import csv_utils, datetime_utils, function_timeout, logger_utils, mesh_grid
 from salve_tpu_torch.utils import normalization_utils, transform
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CV2_VERSION = "5.0.0"  # the bytes below are this cv2's
 MEAN, STD = normalization_utils.get_imagenet_mean_std()

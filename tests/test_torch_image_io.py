@@ -32,6 +32,7 @@ import torch
 from salve_tpu_torch.geometry.sim2 import Sim2
 from salve_tpu_torch.native import jpeg, png
 from salve_tpu_torch.rendering import bev_pair
+from torch_threads import child_env, one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "salve_tpu_torch" / "native" / "fixtures"
@@ -262,7 +263,7 @@ def test_fused_cli_runs_without_imageio_pil_and_cv2(synthetic_building):
                 "--depth_save_root", str(root / "depth"), "--ckpt_fpath", str(root / "tiny.pt"),
                 "--serialization_save_dir", str(root / f"preds_{tag}"), *TINY]
         proc = subprocess.run([sys.executable, "-c", RUN, json.dumps(hidden), json.dumps(argv)], cwd=REPO,
-                              capture_output=True, text=True, timeout=600)
+                              capture_output=True, text=True, timeout=600, env=child_env())
         assert proc.returncode == 0, proc.stderr[-3000:]
         files = sorted((root / f"preds_{tag}").glob("batch_*.json"))
         out[tag] = [json.loads(f.read_text()) for f in files]

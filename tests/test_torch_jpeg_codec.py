@@ -28,6 +28,7 @@ import pytest
 
 from salve_tpu_torch.native import codec_fixtures as cf
 from salve_tpu_torch.native import jpeg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SIZES = [(1, 1), (7, 9), (17, 33), (501, 501)]
 QUALITIES = [1, 50, 75, 95, 100]

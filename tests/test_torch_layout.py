@@ -21,6 +21,7 @@ from salve_tpu_torch.common.wdo import WDO
 from salve_tpu_torch.geometry.sim2 import Sim2
 from salve_tpu_torch.ops import raster
 from salve_tpu_torch.rendering import layout
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TYPES = ("windows", "doors", "openings")
 

@@ -77,6 +77,7 @@ from test_torch_bev_pairs import TEST_ID, TRAIN_IDS, VAL_ID, _jax_aug_params, li
 from test_torch_fused_slice import RENDER, TINY, _read_batches, _write_building
 from test_torch_training import SMALL, _compare_step, _copy, _decode_like_salve_tpu_native, _jax_train_draws
 from torch_parallel_work import FakeDataset, HostBatches
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 POSES = [(15.0 * k, 0.2 * k - 1.0, 0.1 * k) for k in range(10)]

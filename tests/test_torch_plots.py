@@ -80,6 +80,7 @@ from salve_tpu_torch.visualization.pose_viz import plot_3d_poses
 
 from test_torch_bev_pairs import listing_sorted
 from test_torch_stage_d import WDO_TYPES, make_stage_d_inputs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEED, BID, FLOOR = 0, "0000", "floor_01"
 FLOORS = [(SEED, {"n_rows": 2, "n_cols": 3})]

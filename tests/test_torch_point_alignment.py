@@ -19,6 +19,7 @@ from salve_tpu_torch.dataset import procedural
 from salve_tpu_torch.geometry import point_alignment as pa
 from salve_tpu_torch.geometry import sim2_batch as sb
 from salve_tpu_torch.geometry.sim2 import Sim2
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(x):

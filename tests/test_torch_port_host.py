@@ -31,6 +31,7 @@ from salve_tpu_torch.geometry.sim2 import Sim2
 from salve_tpu_torch.rendering import bev_pair
 from salve_tpu_torch.training import transforms
 from salve_tpu_torch.training.config import TrainingConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("theta_deg", [0.0, 30.0, -135.0, 180.0])

@@ -15,6 +15,7 @@ tensors.
 import ast
 import json
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ import torch
 
 from salve_tpu_torch import device as device_mod
 from salve_tpu_torch.ops import fill, kernels, splat, warp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "salve_tpu", "networkx", "click", "imageio", "PIL", "cv2", "matplotlib",
@@ -75,6 +77,47 @@ def test_port_imports_no_jax_and_no_reference_package():
     helper = REPO / "salve_tpu_torch/utils/plotting.py"
     roots = {(name.split(".")[0], local) for name, local in _imported_roots(helper)}
     assert ("matplotlib", True) in roots and ("matplotlib", False) not in roots
+
+
+def _salve_tpu_paths(source: str, exempt_names=()) -> list:
+    """(line, text) of each string of `source` that names a path under
+    salve_tpu/: docstrings, comments and the values assigned to
+    `exempt_names` are left out."""
+    tree = ast.parse(source)
+    exempt = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) and body and \
+                isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+            exempt.add(id(body[0].value))
+        if isinstance(node, ast.Assign) and any(isinstance(t, ast.Name) and t.id in exempt_names
+                                                for t in node.targets):
+            exempt.update(id(n) for n in ast.walk(node.value))
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in exempt
+            and (node.value == "salve_tpu" or re.search(r"(?<![\w.])salve_tpu/", node.value))]
+
+
+def test_no_port_file_names_a_file_of_salve_tpu():
+    """The port keeps its own copies of what it reads (salve_tpu_torch/configs/
+    among them): no module of the port and no line of chip_smoke.py names a
+    path under salve_tpu/. Docstrings and comments may cite the reference,
+    and chip_smoke.py's kernel labels (`REPLACES`) name the Pallas kernel
+    each CUDA kernel replaces."""
+    bad = []
+    for f in _port_files():
+        exempt = ("REPLACES",) if f.name == "chip_smoke.py" else ()
+        bad += [f"{f.relative_to(REPO)}:{line}: {text!r}" for line, text in _salve_tpu_paths(f.read_text(), exempt)]
+    assert not bad, bad
+    # The rule sees a path in code, in an f-string and as a path component,
+    # and passes the exempt forms.
+    probe = ('"""Reads salve_tpu/configs/default.yaml."""\n'
+             'A = "salve_tpu/configs/default.yaml"  # salve_tpu/x\n'
+             'B = f"{root}/salve_tpu/ops/bev.py"\n'
+             'C = Path("repo") / "salve_tpu" / "configs"\n'
+             'D = "salve_tpu_torch/configs/default.yaml"\n'
+             'REPLACES = {"splat": "salve_tpu/ops/pallas_splat.py:77"}\n')
+    assert [line for line, _ in _salve_tpu_paths(probe, ("REPLACES",))] == [2, 3, 4]
 
 
 CARD_CLIS = ["run_sfm", "export_alignment_hypotheses", "test_fused", "stitch_floor_plan", "stitch_floor_plan_clusters",

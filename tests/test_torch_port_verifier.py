@@ -19,6 +19,7 @@ from salve_tpu.models.resnet import RESNET_SPECS as JAX_SPECS
 from salve_tpu_torch.models import weights
 from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet, num_images_for_modalities
 from salve_tpu_torch.models.resnet import RESNET_SPECS
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODALITIES = ("ceiling_rgb_texture", "floor_rgb_texture")
 

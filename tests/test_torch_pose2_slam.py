@@ -26,6 +26,7 @@ from salve_tpu.geometry.sim2 import Sim2 as JaxSim2
 from salve_tpu_torch.algorithms import pose2_slam as slam
 from salve_tpu_torch.geometry.pose2 import Pose2
 from salve_tpu_torch.geometry.sim2 import Sim2
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _jax_jacobian(state, n, n_lms, odo_idx, odo_meas, brm_idx, brm_meas, robust):

@@ -29,6 +29,7 @@ from salve_tpu_torch.geometry.poses import Pose3, Sim3
 from salve_tpu_torch.geometry.sim2 import Sim2
 from salve_tpu_torch.ops import libm, xla_sum
 from salve_tpu_torch.ops.numerics import fma_f32_exact
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _floor_poses(seed):

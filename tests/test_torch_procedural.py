@@ -10,6 +10,7 @@ import pytest
 
 from salve_tpu.dataset import procedural as jprocedural
 from salve_tpu_torch.dataset import procedural
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("style", ["default", "pathological", "rotation_trap"])

@@ -25,6 +25,7 @@ from salve_tpu_torch.common.pano_data import FloorData
 from salve_tpu_torch.dataset import procedural
 from salve_tpu_torch.geometry.sim2 import Sim2
 from salve_tpu_torch.ops.raster import polygon_mask
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SIDE = 501
 

@@ -37,6 +37,7 @@ from salve_tpu_torch.ops import bev as tbev
 from salve_tpu_torch.rendering import bev_pair as tbev_pair
 from salve_tpu_torch.utils import interpolation_utils as tinterp
 from salve_tpu_torch.utils import zorder_utils as tzorder
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 

@@ -50,6 +50,7 @@ from salve_tpu_torch.geometry import rotations3d as rot
 from salve_tpu_torch.geometry.poses import Pose3
 from salve_tpu_torch.utils import colormap
 from salve_tpu_torch.visualization import pose_viz
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Procedural buildings: 0000 and 0001 are test-split ids for nothing here;
 # the evaluation reads any directory of ZInD buildings.

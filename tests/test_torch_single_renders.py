@@ -38,6 +38,7 @@ from salve_tpu_torch.ops import bev as tbev
 from salve_tpu_torch.rendering import bev_pair as tbev_pair
 from salve_tpu_torch.rendering import layout
 from salve_tpu_torch.rendering.synthetic import render_synthetic_pano
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOMS = [
     np.array([[-2.0, -1.5], [3.0, -1.5], [3.0, 2.5], [-2.0, 2.5]]),

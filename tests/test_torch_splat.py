@@ -16,6 +16,7 @@ import torch
 from salve_tpu.ops import bev as jbev
 from salve_tpu.ops.pallas_splat import splat_priority_grid_pallas
 from salve_tpu_torch.ops import splat
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _points(seed, b=2, n=400, h=30, w=37):

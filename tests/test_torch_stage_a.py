@@ -32,6 +32,7 @@ from salve_tpu_torch.hypotheses.wdo_alignment import (
     MIN_ALLOWED_INFERRED_WDO_WIDTH_RATIO,
     AlignTransformType,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (seed, generate_building_json kwargs): a 4x4 grid (10 rooms, the
 # generator's cap), two default floors, and a pathological floor.

@@ -39,6 +39,7 @@ from salve_tpu_torch.hypotheses import wdo_alignment
 from salve_tpu_torch.utils import io
 
 from test_torch_stage_a import _write_building, _write_predictions
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _same(a, b):

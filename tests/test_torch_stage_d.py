@@ -39,6 +39,7 @@ from salve_tpu_torch.hypotheses.export import export_single_building_wdo_alignme
 
 from test_torch_bev_pairs import listing_sorted
 from test_torch_stage_a import _write_building
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (seed, generate_building_json kwargs): two 4x4 floors (12-17 panos) and a
 # default one.
@@ -131,10 +132,12 @@ def assert_reports_match(port, ref, tmp_path, n_floors=len(FLOORS)):
                 np.testing.assert_allclose(a["wSi_dict"][i][key], b["wSi_dict"][i][key], rtol=0, atol=1e-9)
 
 
+# The frozen configuration: two tests read its runs (the `frozen` fixture).
+FROZEN = ("pose2_slam", {"rescue_clusters": True})
 # (method, run_incremental_reconstruction options): every method, and each
 # option of the frozen configuration's neighbourhood.
 CASES = [
-    ("pose2_slam", {"rescue_clusters": True}),  # the frozen configuration
+    FROZEN,
     ("pose2_slam", {}),
     ("pgo", {"resolve_rot_conflicts": True, "rescue_clusters": True}),
     ("spanning_tree", {"filter_edges_by_global_local_consistency": True}),
@@ -145,10 +148,22 @@ CASES = [
 ]
 
 
+@pytest.fixture(scope="module")
+def frozen(inputs, tmp_path_factory):
+    """Both packages' runs in the frozen configuration (which draws no random
+    spanning trees), made once for the two tests that read them."""
+    tmp_path = tmp_path_factory.mktemp("frozen")
+    method, options = FROZEN
+    return (*run_both(inputs, tmp_path, method, **options), tmp_path)
+
+
 @pytest.mark.parametrize("method,options", CASES, ids=[f"{m}-{'-'.join(o) or 'plain'}" for m, o in CASES])
-def test_reports_match_salve_tpu(inputs, tmp_path, monkeypatch, method, options):
-    same_rng_for_random_spanning_trees(monkeypatch, seed=3)
-    port, ref = run_both(inputs, tmp_path, method, **options)
+def test_reports_match_salve_tpu(inputs, tmp_path, monkeypatch, request, method, options):
+    if (method, options) == FROZEN:
+        port, ref, tmp_path = request.getfixturevalue("frozen")
+    else:
+        same_rng_for_random_spanning_trees(monkeypatch, seed=3)
+        port, ref = run_both(inputs, tmp_path, method, **options)
     assert_reports_match(port, ref, tmp_path)
     if options.get("rescue_clusters"):
         assert min(r.percent_panos_localized for r in port) > 50.0
@@ -163,11 +178,11 @@ def test_landmark_slam_with_axis_alignment_matches_salve_tpu(inferred_inputs, tm
     assert_reports_match(port, ref, tmp_path, n_floors=1)
 
 
-def test_frozen_config_with_each_packages_alignment(inputs, tmp_path):
+def test_frozen_config_with_each_packages_alignment(frozen):
     """The frozen configuration: on every floor both packages' RANSAC picks
     the same Sim(3), so the serialized aligned poses are equal to the bit
     and the reports equal."""
-    port, ref = run_both(inputs, tmp_path, "pose2_slam", rescue_clusters=True)
+    port, ref, tmp_path = frozen
     differing = []
     for pf, rf in zip(sorted((tmp_path / "port_serialized").glob("*.json")),
                       sorted((tmp_path / "ref_serialized").glob("*.json"))):

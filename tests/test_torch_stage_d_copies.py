@@ -50,6 +50,7 @@ from salve_tpu_torch.utils import axis_alignment, graph_utils, iou_utils, pr_uti
 
 from test_torch_bev_pairs import listing_sorted
 from test_torch_stage_d import FLOORS, WDO_TYPES, make_stage_d_inputs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _sim2(a, b):

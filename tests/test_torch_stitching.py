@@ -36,6 +36,7 @@ from salve_tpu_torch.ops import raster
 from salve_tpu_torch.stitching import cluster_stitching, shape
 
 from test_torch_stage_d import WDO_TYPES, make_stage_d_inputs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FLOORS = [(0, {"n_rows": 4, "n_cols": 4}), (1, {"n_rows": 4, "n_cols": 4})]
 

@@ -37,6 +37,7 @@ from salve_tpu_torch.stitching import (
     transform,
     utilities,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _pt(mod, xy):

@@ -67,6 +67,7 @@ from salve_tpu_torch.training.config import TrainingConfig
 from salve_tpu_torch.training.flax_checkpoint import _param_names, flax_checkpoint_to_port
 from test_torch_bev_pairs import (TEST_ID, TRAIN_IDS, VAL_ID, _jax_aug_params, listing_sorted_make_dataset,
                                   write_bev_tree)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 SMALL = dict(num_layers=18, resize_h=40, resize_w=40, train_h=32, train_w=32, batch_size=8,

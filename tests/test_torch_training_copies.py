@@ -2,7 +2,9 @@
 
   * YAML configs: every salve_tpu/configs/*.yaml loads, through the port's
     own reader (no PyYAML), to a config equal to salve_tpu's
-    `load_training_config`; a line outside the subset raises, naming it;
+    `load_training_config`; the port's copy of each
+    (salve_tpu_torch/configs/, `_target_` naming the port's class) loads,
+    through the port's loader, to the original's config; a line outside the subset raises, naming it;
     the dataclass lists salve_tpu's fields in its order with its defaults;
   * weights: `convert_torchvision_resnet_state_dict` and `_widen_stem`
     equal salve_tpu's (carried by `state_dict_from_flax`), on state dicts
@@ -15,6 +17,7 @@
 
 import dataclasses
 import glob
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -33,6 +36,7 @@ from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet
 from salve_tpu_torch.training import calibration as tcal
 from salve_tpu_torch.training import config as tconfig
 from salve_tpu_torch.training.flax_checkpoint import read_flax_msgpack
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(glob.glob(str(REPO / "salve_tpu" / "configs" / "*.yaml")))
@@ -47,6 +51,33 @@ def test_every_config_loads_as_salve_tpu_loads_it(fpath):
     ref = jconfig.load_training_config(fpath)
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     assert tconfig.read_config_yaml(fpath) == yaml.safe_load(open(fpath))
+
+
+PORT_CONFIGS = REPO / "salve_tpu_torch" / "configs"
+PORT_TARGET = "salve_tpu_torch.training.config.TrainingConfig"
+
+
+def test_the_port_holds_a_copy_of_every_config():
+    assert sorted(p.name for p in PORT_CONFIGS.glob("*.yaml")) == sorted(Path(c).name for c in CONFIGS)
+    assert len(CONFIGS) == 6
+
+
+@pytest.mark.parametrize("fpath", CONFIGS, ids=[Path(c).stem for c in CONFIGS])
+def test_the_ports_config_copy_loads_as_salve_tpus_original(fpath):
+    """The copy, through the port's loader, and the original, through
+    salve_tpu's, give equal TrainingConfigs; the copy's `_target_` names the
+    port's class, and nothing else in it differs from the original."""
+    copy = PORT_CONFIGS / Path(fpath).name
+    got = tconfig.load_training_config(str(copy))
+    ref = jconfig.load_training_config(fpath)
+    assert isinstance(got, tconfig.TrainingConfig)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    ours, theirs = tconfig.read_config_yaml(str(copy)), yaml.safe_load(open(fpath))
+    assert ours["TrainingConfig"].pop("_target_") == PORT_TARGET
+    assert theirs["TrainingConfig"].pop("_target_") == "salve_tpu.training.config.TrainingConfig"
+    assert ours == theirs
+    module, name = PORT_TARGET.rsplit(".", 1)
+    assert getattr(importlib.import_module(module), name) is tconfig.TrainingConfig
 
 
 def test_config_dataclass_equals_salve_tpus():

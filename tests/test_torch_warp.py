@@ -18,6 +18,7 @@ import torch
 from salve_tpu.ops import warp as jwarp
 from salve_tpu.ops.pallas_warp import warp_bank_sim2_shear_pallas_v2
 from salve_tpu_torch.ops import warp as twarp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CASES = [
     (0.0, (0.0, 0.0)),
