@@ -22,9 +22,11 @@ for that; the training CLIs (`set_cublas_workspace_config`) and
 chip_smoke.py set it. An op with no deterministic CUDA kernel raises under
 the policy.
 
-Launch counts: every CUDA kernel wrapper adds one to its entry in
-`LAUNCHES` each time it launches its kernel, and nowhere else, so a run can
-show that the main path went through the kernels.
+Launch counts: every CUDA kernel wrapper calls `count_launch` each time it
+launches its kernel, and nowhere else, so a run can show that the main path
+went through the kernels. The counts are the `launches/<kernel>` entries of
+the port's counters (utils/profiler.py), so a traced run also finds them on
+the span each launch was made in.
 """
 
 from __future__ import annotations
@@ -35,18 +37,23 @@ from typing import Dict, Iterator, Optional, Union
 
 import torch
 
+from salve_tpu_torch.utils import profiler
+
 DeviceLike = Union[str, torch.device, None]
 
-LAUNCHES: Dict[str, int] = {"splat": 0, "fill": 0, "warp": 0}
+KERNELS = ("splat", "fill", "warp")
+
+
+def count_launch(kernel: str) -> None:
+    profiler.count("launches/" + kernel)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    profiler.reset_counters(*("launches/" + k for k in KERNELS))
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    return {k: profiler.counter("launches/" + k) for k in KERNELS}
 
 
 def apply_numerics_policy() -> None:

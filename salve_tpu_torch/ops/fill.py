@@ -94,7 +94,7 @@ def fill_and_mask_cuda(
         b, h, w, kernels.stream_handle(sparse.device),
     )
     kernels.check(err, "fill")
-    device_mod.LAUNCHES["fill"] += 1
+    device_mod.count_launch("fill")
     return out
 
 

@@ -57,7 +57,7 @@ def splat_priority_grid_cuda(
         b, n, hw, kernels.stream_handle(cell.device),
     )
     kernels.check(err, "splat")
-    device_mod.LAUNCHES["splat"] += 1
+    device_mod.count_launch("splat")
     return grid
 
 

@@ -377,7 +377,7 @@ def shear_warp_cuda(banks, bank_idx: torch.Tensor, p: ShearParams):
         b, bank.shape[0], s, p.d, p.x3, p.y2, kernels.stream_handle(bank.device),
     )
     kernels.check(err, "warp")
-    device_mod.LAUNCHES["warp"] += 1
+    device_mod.count_launch("warp")
     return outs[0] if single else outs
 
 

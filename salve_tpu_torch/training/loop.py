@@ -32,6 +32,7 @@ from salve_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate, shard_batc
 from salve_tpu_torch.training import train as train_lib
 from salve_tpu_torch.training.config import TrainingConfig
 from salve_tpu_torch.training.meters import PrecisionRecallMeter, SegmentationAverageMeter
+from salve_tpu_torch.utils import profiler
 from salve_tpu_torch.utils.io import save_json_file
 
 logger = logging.getLogger(__name__)
@@ -96,40 +97,57 @@ def run_epoch(
     `sync_every` steps fetches one scalar, so the host runs at most that
     many steps ahead of the device (each queued batch pins its images in
     device memory).
+
+    Spans (utils/profiler.py): `epoch` (its id the epoch) with `gather`
+    (the next batch from the dataset), the step's own, `fold` and `sync`
+    (each fetch from the device) inside it. Counters: `train_steps` and
+    `train_tuples` (a train split's steps and the rows they trained).
     """
     from salve_tpu_torch.training.device_corpus import DeviceCorpus
 
     sharded_step, whole_step = steps
-    acc = _new_accumulator(cfg.num_ce_classes, state.device)
-    n_batches = 0
-    t_start = time.time()
-    sync_every = max(1, min(cfg.print_every, 32))
-    rows_are_local = isinstance(dataset, DeviceCorpus)
-    for batch in dataset.iter_batches(cfg.batch_size, shuffle=(split == "train"), seed=epoch):
-        imgs, labels = batch[0], batch[1]
-        valid = batch[3] if len(batch) > 3 else np.ones(len(labels), bool)
-        step_fn, step_imgs, step_labels = whole_step, imgs, labels
-        if mesh is not None and mesh.size > 1 and len(labels) % mesh.size == 0:
-            step_fn, step_labels = sharded_step, shard_batch(mesh, labels)
-            step_imgs = imgs if rows_are_local else shard_batch(mesh, imgs)
-        if split == "train":
-            state, metrics = step_fn(state, step_imgs, step_labels, gen)
-        else:
-            metrics = step_fn(state, step_imgs, step_labels)
-        _fold(acc, metrics["loss"], metrics["probs"], labels, valid)
-        n_batches += 1
-        if n_batches % cfg.print_every == 0:
-            avg_loss, mAcc, _ = _metrics_from_acc(acc)  # waits for this step
-            logger.info(
-                "[%s] epoch %d batch %d loss %.4f mAcc %.4f (%.2fs/batch)",
-                split, epoch, n_batches, avg_loss, mAcc, (time.time() - t_start) / n_batches,
-            )
-        elif n_batches % sync_every == 0:
-            int(acc["n"].item())  # backpressure only
-        if max_batches is not None and n_batches >= max_batches:
-            break
+    with profiler.annotate("epoch", id=epoch):
+        acc = _new_accumulator(cfg.num_ce_classes, state.device)
+        n_batches = 0
+        t_start = time.time()
+        sync_every = max(1, min(cfg.print_every, 32))
+        rows_are_local = isinstance(dataset, DeviceCorpus)
+        batches = iter(dataset.iter_batches(cfg.batch_size, shuffle=(split == "train"), seed=epoch))
+        while True:
+            with profiler.annotate("gather"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            imgs, labels = batch[0], batch[1]
+            valid = batch[3] if len(batch) > 3 else np.ones(len(labels), bool)
+            step_fn, step_imgs, step_labels = whole_step, imgs, labels
+            if mesh is not None and mesh.size > 1 and len(labels) % mesh.size == 0:
+                step_fn, step_labels = sharded_step, shard_batch(mesh, labels)
+                step_imgs = imgs if rows_are_local else shard_batch(mesh, imgs)
+            if split == "train":
+                state, metrics = step_fn(state, step_imgs, step_labels, gen)
+                profiler.count("train_steps")
+                profiler.count("train_tuples", len(labels))
+            else:
+                metrics = step_fn(state, step_imgs, step_labels)
+            with profiler.annotate("fold"):
+                _fold(acc, metrics["loss"], metrics["probs"], labels, valid)
+            n_batches += 1
+            if n_batches % cfg.print_every == 0:
+                with profiler.annotate("sync"):
+                    avg_loss, mAcc, _ = _metrics_from_acc(acc)  # waits for this step
+                    logger.info(
+                        "[%s] epoch %d batch %d loss %.4f mAcc %.4f (%.2fs/batch)",
+                        split, epoch, n_batches, avg_loss, mAcc, (time.time() - t_start) / n_batches,
+                    )
+            elif n_batches % sync_every == 0:
+                with profiler.annotate("sync"):
+                    int(acc["n"].item())  # backpressure only
+            if max_batches is not None and n_batches >= max_batches:
+                break
 
-    avg_loss, mAcc, accuracy_class = _metrics_from_acc(acc) if n_batches else (0.0, 0.0, [])
+        with profiler.annotate("sync"):
+            avg_loss, mAcc, accuracy_class = _metrics_from_acc(acc) if n_batches else (0.0, 0.0, [])
     return state, {"avg_loss": avg_loss, "mAcc": mAcc, "class_accs": accuracy_class}
 
 

@@ -39,6 +39,7 @@ from salve_tpu_torch.models.weights import read_verifier_checkpoint
 from salve_tpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_sum
 from salve_tpu_torch.training import transforms
 from salve_tpu_torch.training.config import TrainingConfig
+from salve_tpu_torch.utils import profiler
 
 # optax.adam's defaults.
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -223,52 +224,63 @@ def make_train_step(cfg: TrainingConfig, mesh: Optional[Mesh] = None):
     batch of N * B (parallel/mesh.py:shard_batch) and `aug` is drawn (or
     given) for the global batch; the metrics are the global batch's and
     `.grad` the global gradient on every rank.
+
+    Spans (utils/profiler.py): `step` (its id the state's step count before
+    it) with `augment` (the batch on the device, the draw and
+    `apply_augment`), `forward` (train mode, the model and the loss),
+    `backward` and `optimizer` inside it; the mesh's collectives between
+    them are in `step` alone.
     """
     sharded = _sharded(mesh)
 
     def train_step(state: TrainState, imgs, labels, aug: Union[torch.Generator, transforms.AugmentParams]):
-        imgs, labels = _as_device_batch(imgs, labels, state.device)
-        world = mesh.size if sharded else 1
-        if isinstance(aug, torch.Generator):
-            b, n, h, w, _ = imgs.shape
-            aug = transforms.draw_augment_params(aug, world * b, n, h, w, cfg.train_h, cfg.train_w,
-                                                 cfg.apply_photometric_augmentation)
-        if sharded:
-            aug = _rank_rows(aug, mesh)
-        x = transforms.apply_augment(imgs, aug.to(state.device), cfg.train_h, cfg.train_w)
-        model = state.model.train()
-        for p in model.parameters():
-            p.grad = None
-        with global_batch_statistics(model, mesh):
-            logits = model(split_images(x))
-        ce = F.cross_entropy(logits, labels, reduction="none")
-        if cfg.class_balanced_loss:
-            # Each class contributes half of the loss (train.py:118-131),
-            # the classes counted over the global batch.
-            pos = labels == 1
-            counts = torch.stack([pos.sum(), (~pos).sum()])
+        with profiler.annotate("step", id=state.step):
+            with profiler.annotate("augment"):
+                imgs, labels = _as_device_batch(imgs, labels, state.device)
+                world = mesh.size if sharded else 1
+                if isinstance(aug, torch.Generator):
+                    b, n, h, w, _ = imgs.shape
+                    aug = transforms.draw_augment_params(aug, world * b, n, h, w, cfg.train_h, cfg.train_w,
+                                                         cfg.apply_photometric_augmentation)
+                if sharded:
+                    aug = _rank_rows(aug, mesh)
+                x = transforms.apply_augment(imgs, aug.to(state.device), cfg.train_h, cfg.train_w)
+            with profiler.annotate("forward"):
+                model = state.model.train()
+                for p in model.parameters():
+                    p.grad = None
+                with global_batch_statistics(model, mesh):
+                    logits = model(split_images(x))
+                ce = F.cross_entropy(logits, labels, reduction="none")
+                if cfg.class_balanced_loss:
+                    # Each class contributes half of the loss (train.py:118-131),
+                    # the classes counted over the global batch.
+                    pos = labels == 1
+                    counts = torch.stack([pos.sum(), (~pos).sum()])
+                    if sharded:
+                        all_reduce_sum(mesh, counts)
+                    n_pos, n_neg = counts.clamp_min(1).to(torch.float32)
+                    loss = (ce * torch.where(pos, 0.5 / n_pos, 0.5 / n_neg)).sum()
+                    if sharded:
+                        loss = loss * world  # this rank's share of the global loss, as a shard mean
+                else:
+                    loss = ce.mean()
+            with profiler.annotate("backward"):
+                loss.backward()
             if sharded:
-                all_reduce_sum(mesh, counts)
-            n_pos, n_neg = counts.clamp_min(1).to(torch.float32)
-            loss = (ce * torch.where(pos, 0.5 / n_pos, 0.5 / n_neg)).sum()
+                _all_reduce_mean_grads(mesh, list(model.parameters()))
+            with profiler.annotate("optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            logits, loss = logits.detach(), loss.detach()
             if sharded:
-                loss = loss * world  # this rank's share of the global loss, as a shard mean
-        else:
-            loss = ce.mean()
-        loss.backward()
-        if sharded:
-            _all_reduce_mean_grads(mesh, list(model.parameters()))
-        state.optimizer.step()
-        state.step += 1
-        logits, loss = logits.detach(), loss.detach()
-        if sharded:
-            logits, labels = all_gather_rows(mesh, logits), all_gather_rows(mesh, labels)
-            loss = all_reduce_sum(mesh, loss.clone()) / world
-        return state, {
-            "loss": loss,
-            "accuracy": (logits.argmax(dim=1) == labels).to(torch.float32).mean(),
-            "probs": torch.softmax(logits, dim=1),
-        }
+                logits, labels = all_gather_rows(mesh, logits), all_gather_rows(mesh, labels)
+                loss = all_reduce_sum(mesh, loss.clone()) / world
+            return state, {
+                "loss": loss,
+                "accuracy": (logits.argmax(dim=1) == labels).to(torch.float32).mean(),
+                "probs": torch.softmax(logits, dim=1),
+            }
 
     return train_step
 
