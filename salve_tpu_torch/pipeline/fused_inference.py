@@ -17,6 +17,20 @@ scores its batch_size / N rows of each padded batch with the unmodified
 one-card body, and the (y_hat, prob) of each batch are all-gathered, so
 every rank returns the whole ordered list. No other collective runs.
 
+The verifier (the model, the softmax, the predicted class and its
+probability) runs on the card as one CUDA graph a batch shape: captured on
+the first batch of a shape, after an eager warm-up, and replayed for every
+later one, which the host launches at the cost of one copy in, one launch
+and two small copies out instead of ResNet-152's several hundred launches.
+It engages from what the code can observe, with no switch: the model's
+parameters on the card, every module in eval mode, grad off. The graph is
+keyed by the batch's shape, dtype and device and by the storage of every
+parameter and buffer (`verifier_key`, computed once a floor): a parameter
+replaced, or a state loaded with `assign=True`, captures anew, while a
+value changed in place is read by the next replay. Python attributes of the
+model are not keyed: a replay does not call `forward`, nor any hook. The
+CPU, and a model in training mode, run the verifier eagerly.
+
 Spans (utils/profiler.py; recorded only under a profiler): `floor` for the
 call (its id the running count of floors scored) with `upload`, `banks` and
 one `batch` a batch inside it; in a batch `prepare` (the padded chunk and
@@ -24,11 +38,15 @@ its index and pose tensors), `score_batch`'s `warp`, `preprocess` and
 `verifier`, `fetch` (where the host waits for the card) and `collect`.
 Counters: `floors`, `hypotheses`, `panos`, `h2d_bytes` (the banks'
 upload and each batch's tensors), `rows` and `padded_rows` (a batch's
-rows, of them padding), `d2h_bytes`.
+rows, of them padding), `d2h_bytes`; in `verifier`, one of
+`verifier/graph_replays` (a batch the graph scored, the batch that captured
+it among them) or `verifier/eager` a batch, and `verifier/graph_captures`.
 """
 
 from __future__ import annotations
 
+import itertools
+import weakref
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -73,11 +91,14 @@ def score_batch(
     i2_idx: torch.Tensor,
     rotations: torch.Tensor,
     translations: torch.Tensor,
+    key: Optional[tuple] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused render -> preprocess -> verify batch (JAX `_make_score_body`).
 
     In warp mode `depths`/`rgbs` hold the extended packed rgb888 warp banks
-    of the ceiling and the floor instead of the raw pano banks.
+    of the ceiling and the floor instead of the raw pano banks. `key` is
+    `verifier_key(model)`, which a caller scoring many batches computes
+    once; None computes it here.
     """
     with profiler.annotate("warp"):
         if use_warp_renders:
@@ -100,10 +121,106 @@ def score_batch(
         batch = transforms.resize_batch(batch, cfg.resize_h, cfg.resize_w)
         batch = transforms.preprocess_eval(batch, cfg.train_h, cfg.train_w)
     with profiler.annotate("verifier"):
-        logits = model([batch[:, i].permute(0, 3, 1, 2) for i in range(4)])
-        probs = torch.softmax(logits, dim=1)
-        y_hat = torch.argmax(logits, dim=1)
-        return y_hat, probs[torch.arange(probs.shape[0], device=probs.device), y_hat]
+        return run_verifier(model, batch, verifier_key(model) if key is None else key)
+
+
+def _verify(model: torch.nn.Module, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y_hat, prob of y_hat) of a preprocessed (B, 4, h, w, 3) batch."""
+    logits = model([batch[:, i].permute(0, 3, 1, 2) for i in range(4)])
+    probs = torch.softmax(logits, dim=1)
+    y_hat = torch.argmax(logits, dim=1)
+    return y_hat, probs[torch.arange(probs.shape[0], device=probs.device), y_hat]
+
+
+class _Graph(NamedTuple):
+    """A captured `_verify`: its static input and outputs. Holds no
+    reference to the model."""
+
+    graph: "torch.cuda.CUDAGraph"
+    batch: torch.Tensor
+    y_hat: torch.Tensor
+    prob: torch.Tensor
+
+
+# model -> (its parameter key, {batch key: _Graph}). Weak, so that a model's
+# graphs and their memory pools go with it.
+_GRAPHS: "weakref.WeakKeyDictionary[torch.nn.Module, Tuple[tuple, Dict[tuple, _Graph]]]" = (
+    weakref.WeakKeyDictionary())
+
+
+def _walk(model: torch.nn.Module) -> Tuple[bool, tuple]:
+    """(every module in eval mode and every parameter and buffer on the
+    card, the data pointer of each parameter and buffer), in one pass over
+    each module's own dicts: `parameters()` takes three times as long on
+    ResNet-152."""
+    graphable, pointers = True, []
+    for m in model.modules():
+        graphable = graphable and not m.training
+        for t in itertools.chain(m._parameters.values(), m._buffers.values()):
+            if t is not None:
+                graphable = graphable and t.is_cuda
+                pointers.append(t.data_ptr())
+    return graphable, tuple(pointers)
+
+
+def parameter_key(model: torch.nn.Module) -> tuple:
+    """The storage a captured verifier reads besides its input: the data
+    pointer of every parameter and buffer of `model`."""
+    return _walk(model)[1]
+
+
+def batch_key(batch: torch.Tensor) -> tuple:
+    return tuple(batch.shape), batch.dtype, batch.device
+
+
+def verifier_key(model: torch.nn.Module) -> tuple:
+    """`parameter_key(model)` where the verifier can run as a CUDA graph:
+    every module in eval mode and every parameter and buffer on the card;
+    else () and the verifier runs eagerly."""
+    graphable, key = _walk(model)
+    return key if graphable else ()
+
+
+def run_verifier(model: torch.nn.Module, batch: torch.Tensor, key: tuple) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_verify(model, batch)`, replayed from the graph of (`key`, the
+    batch's key) where `key` is not () (`verifier_key`), the batch is on the
+    card and grad is off, and captured first where there is none; eager
+    otherwise. The outputs are the caller's: no later replay writes them."""
+    if not key or batch.device.type != "cuda" or torch.is_grad_enabled():
+        profiler.count("verifier/eager")
+        return _verify(model, batch)
+    held = _GRAPHS.get(model)
+    if held is None or held[0] != key:
+        # New storage: the graphs that read the old go, with their pools.
+        held = _GRAPHS[model] = (key, {})
+    graphs, shape = held[1], batch_key(batch)
+    g = graphs.get(shape)
+    if g is None:
+        g = graphs[shape] = _capture(model, batch)
+        profiler.count("verifier/graph_captures")
+    else:
+        g.batch.copy_(batch)
+    g.graph.replay()
+    profiler.count("verifier/graph_replays")
+    return g.y_hat.clone(), g.prob.clone()
+
+
+def _capture(model: torch.nn.Module, batch: torch.Tensor) -> _Graph:
+    """The graph of `_verify` on a static copy of `batch`, after one eager
+    run on a side stream that makes cuDNN's choices outside the capture.
+    Autocast's cache of cast weights is off (the model's own bf16 block
+    inherits it), so that no cast made in the capture outlives it."""
+    static = batch.clone()
+    side = torch.cuda.Stream(batch.device)
+    side.wait_stream(torch.cuda.current_stream(batch.device))
+    with torch.autocast("cuda", enabled=False, cache_enabled=False):
+        with torch.cuda.stream(side):
+            _verify(model, static)
+        torch.cuda.current_stream(batch.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y_hat, prob = _verify(model, static)
+    return _Graph(graph, static, y_hat, prob)
 
 
 @torch.no_grad()
@@ -174,6 +291,7 @@ def score_floor_hypotheses(
     with profiler.annotate("floor", id=floor_id, panos=int(depths.shape[0])):
         profiler.count("hypotheses", len(hypotheses))
         model = model.to(dev).eval()
+        key = verifier_key(model)
 
         with profiler.annotate("upload"):
             # uint16 mm -> float32 is exact; float32 banks index on every device.
@@ -210,7 +328,7 @@ def score_floor_hypotheses(
 
                 y_hat, prob = score_batch(
                     model, cfg, render_cfg, use_warp_renders, depths_d, rgbs_d,
-                    bank_ceil, bank_floor, i1_idx, i2_idx, rotations, translations,
+                    bank_ceil, bank_floor, i1_idx, i2_idx, rotations, translations, key=key,
                 )
                 if mesh is not None:
                     y_hat, prob = all_gather_rows(mesh, y_hat), all_gather_rows(mesh, prob)

@@ -45,7 +45,7 @@ RENAMED = {
     ("parallel/mesh.py", "batch_sharding"): ("parallel/mesh.py", "shard_batch", "a rank takes its rows; no sharding object"),
     ("parallel/mesh.py", "replicated_sharding"): ("parallel/mesh.py", "replicate", "parameters broadcast from rank 0"),
     ("pipeline/fused_inference.py", "make_fused_score_fn"): (
-        "pipeline/fused_inference.py", "score_batch", "the jitted batch body runs eagerly"),
+        "pipeline/fused_inference.py", "score_batch", "the jitted batch body runs eagerly, its verifier as a CUDA graph"),
     ("pipeline/fused_inference.py", "make_fused_score_fn_sharded"): (
         "pipeline/fused_inference.py", "score_floor_hypotheses", "the mesh is its `mesh=` argument"),
 }
