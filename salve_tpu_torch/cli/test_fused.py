@@ -16,6 +16,13 @@ package's flags.
 (parallel/mesh.py): run alone, the CLI starts the N ranks itself (gloo
 ranks on the CPU with `--device cpu`); inside a process group of N (for
 example under torchrun) it joins it. Rank 0 writes the files.
+
+`--hohonet_ckpt` (a HoHoNet `.pth`, built for `--hohonet_input_hw`): a
+floor with a pano that has no cached depth map gets the depth of all its
+panos computed on the card inside the scorer (pipeline/fused_inference.py),
+with no PNG written or read; every rank of a mesh computes it. A floor
+whose maps are all cached is scored from them. Without it, a missing map
+is made through the depth cache's registered producer.
 """
 
 from __future__ import annotations
@@ -69,15 +76,18 @@ def score_building_fused(
     use_warp_renders=None,
     device=None,
     mesh=None,
+    depth_model=None,
 ) -> int:
     """Score every hypothesis of one building; write batch_{i}.json files.
 
     With a mesh every rank scores its rows of each batch and rank 0 writes
-    the files (rank 0 fills a missing depth cache first). Returns the
-    number of batch files written.
+    the files (rank 0 fills a missing depth cache first). With a
+    `depth_model` (a HoHoNetDepth) a floor that lacks a cached depth map
+    has its depth computed inside the scorer instead (module docstring).
+    Returns the number of batch files written.
     """
     from salve_tpu_torch.common.alignment_hypothesis import AlignmentHypothesis
-    from salve_tpu_torch.depth.cache import infer_depth_if_nonexistent
+    from salve_tpu_torch.depth.cache import depth_fpath_for_pano, infer_depth_if_nonexistent
     from salve_tpu_torch.device import resolve_device
     from salve_tpu_torch.geometry.sim2 import Sim2
     from salve_tpu_torch.parallel.mesh import main_rank_first
@@ -137,15 +147,20 @@ def score_building_fused(
 
         pano_ids = sorted(needed)
         id2row = {pid: k for k, pid in enumerate(pano_ids)}
-        with contextlib.nullcontext() if mesh is None else main_rank_first(mesh):
-            depths = np.stack(
-                [
-                    bev_pair.load_depth_mm(
-                        infer_depth_if_nonexistent(depth_save_root, building_id, img_fpaths_dict[pid])
-                    )
-                    for pid in pano_ids
-                ]
-            )
+        if depth_model is not None and not all(
+                Path(depth_fpath_for_pano(depth_save_root, building_id, img_fpaths_dict[pid])).exists()
+                for pid in pano_ids):
+            depths = None
+        else:
+            with contextlib.nullcontext() if mesh is None else main_rank_first(mesh):
+                depths = np.stack(
+                    [
+                        bev_pair.load_depth_mm(
+                            infer_depth_if_nonexistent(depth_save_root, building_id, img_fpaths_dict[pid])
+                        )
+                        for pid in pano_ids
+                    ]
+                )
         rgbs = np.stack(
             [bev_pair.load_pano_rgb(img_fpaths_dict[pid]) for pid in pano_ids]
         ).astype(np.float32)
@@ -155,11 +170,13 @@ def score_building_fused(
             model, cfg, depths, rgbs, id2row, hyps,
             batch_size=batch_size, render_cfg=render_cfg,
             use_warp_renders=use_warp_renders, device=dev, mesh=mesh,
+            depth_model=None if depths is not None else depth_model,
         )
         elapsed = max(time.time() - t0, 1e-9)
         logger.info(
-            "%s %s: scored %d hypotheses in %.1fs (%.1f hyp/s) on %s",
+            "%s %s: scored %d hypotheses in %.1fs (%.1f hyp/s) on %s, depth %s",
             building_id, floor_id, len(results), elapsed, len(results) / elapsed, dev,
+            "from the cache" if depths is not None else f"of {len(pano_ids)} panos computed on the card",
         )
 
         for start in range(0, len(results), batch_size):
@@ -222,6 +239,11 @@ def build_parser() -> argparse.ArgumentParser:
     warp.add_argument("--no_warp_renders", dest="use_warp_renders", action="store_false", default=None)
     p.add_argument("--append_pair_difference", action="store_true",
                    help="Checkpoint was trained with explicit per-pair difference channels.")
+    p.add_argument("--hohonet_ckpt", type=existing_path, default=None,
+                   help="HoHoNet .pth: a floor lacking a cached depth map gets its depth computed on the card "
+                        "inside the scorer, with no PNG written.")
+    p.add_argument("--hohonet_input_hw", type=str, default="512,1024",
+                   help="Input resolution the --hohonet_ckpt was built for; ep60 is the production 512,1024.")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu.")
     return p
 
@@ -238,6 +260,7 @@ def run_test_fused(
     hypotheses_save_root, raw_dataset_dir, depth_save_root, ckpt_fpath,
     serialization_save_dir, building_id, num_layers, resize_px, crop_px,
     batch_size, mesh_devices, use_warp_renders, append_pair_difference, device,
+    hohonet_ckpt, hohonet_input_hw,
 ) -> None:
     options = dict(locals())
     logging.basicConfig(level=logging.INFO)
@@ -270,6 +293,11 @@ def run_test_fused(
         append_pair_difference=append_pair_difference,
     )
     model = load_verifier(ckpt_fpath, cfg)
+    depth_model = None
+    if hohonet_ckpt is not None:
+        from salve_tpu_torch.models.hohonet import load_hohonet
+
+        depth_model = load_hohonet(hohonet_ckpt, tuple(int(v) for v in hohonet_input_hw.split(",")), device=dev)
 
     Path(serialization_save_dir).mkdir(parents=True, exist_ok=True)
     if building_id is not None:
@@ -283,7 +311,7 @@ def run_test_fused(
             bid, hypotheses_save_root, raw_dataset_dir, depth_save_root,
             model, cfg, serialization_save_dir,
             batch_size=batch_size, start_batch_idx=total,
-            use_warp_renders=use_warp_renders, device=dev, mesh=mesh,
+            use_warp_renders=use_warp_renders, device=dev, mesh=mesh, depth_model=depth_model,
         )
     logger.info("wrote %d batch files to %s", total, serialization_save_dir)
 

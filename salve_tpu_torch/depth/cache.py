@@ -15,11 +15,20 @@ from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 # Registered producer: fn(rgb (512,1024,3) float [0,1]) -> depth_m (512,1024) float.
 _DEPTH_MODEL: Optional[Callable[[np.ndarray], np.ndarray]] = None
 
 PANO_H, PANO_W = 512, 1024
+
+
+def meters_to_mm(depth_m: torch.Tensor) -> torch.Tensor:
+    """The cache's millimetres: round(depth_m * 1000), half to even, clipped
+    to [0, 65535], in depth_m's dtype and on its device. The scorer's depth
+    computed on the card (pipeline/fused_inference.py:depth_mm_bank) and the PNGs
+    written here both go through it."""
+    return torch.clamp(torch.round(depth_m * 1000.0), 0, 65535)
 
 
 def register_depth_model(fn: Optional[Callable[[np.ndarray], np.ndarray]]) -> None:
@@ -37,8 +46,8 @@ def infer_depth_if_nonexistent(depth_save_root: str, building_id: str, img_fpath
     """Ensure a cached depth map exists for this pano; return its path.
 
     On a miss, runs the registered producer on the pano (read and resized
-    to 512x1024 by `load_pano_rgb`) and writes its depth as a u16 mm PNG:
-    round(depth_m * 1000) clipped to [0, 65535] on the host. Raises
+    to 512x1024 by `load_pano_rgb`) and writes its depth as a u16 mm PNG
+    (`meters_to_mm`, on the host). Raises
     FileNotFoundError if no producer is registered and no cache exists.
     """
     depth_fpath = depth_fpath_for_pano(depth_save_root, building_id, img_fpath)
@@ -59,7 +68,7 @@ def infer_depth_if_nonexistent(depth_save_root: str, building_id: str, img_fpath
     depth_m = np.asarray(_DEPTH_MODEL(rgb))
     if depth_m.shape != (PANO_H, PANO_W):
         raise ValueError(f"Depth model returned shape {depth_m.shape}")
-    depth_mm = np.clip(np.round(depth_m * 1000.0), 0, 65535).astype(np.uint16)
+    depth_mm = meters_to_mm(torch.as_tensor(depth_m)).numpy().astype(np.uint16)
     os.makedirs(os.path.dirname(depth_fpath), exist_ok=True)
     Path(depth_fpath).write_bytes(png.encode_png(depth_mm))
     return depth_fpath

@@ -366,19 +366,19 @@ def linear_resize_weights(in_size: int, out_size: int) -> torch.Tensor:
 
 def resize_linear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """jax.image.resize(img, (*out_hw, ...), method="linear") for an
-    (H, W) or (H, W, C) float32 tensor: one weight matrix per resized axis,
-    applied as two contractions (an axis of equal size is skipped)."""
-    h, w = img.shape[:2]
-    out = img
-    if out_hw[0] != h:
-        wh = linear_resize_weights(h, out_hw[0]).to(img.device)
-        out = torch.tensordot(wh.t(), out, dims=([1], [0]))
-    if out_hw[1] != w:
-        ww = linear_resize_weights(w, out_hw[1]).to(img.device)
-        out = torch.tensordot(out, ww, dims=([1], [0]))
-        if out.ndim == 3:
-            out = out.permute(0, 2, 1)
-    return out
+    (H, W) or (H, W, C) float32 tensor (`resize_linear_batch` of one)."""
+    return resize_linear_batch(img[None], out_hw)[0]
+
+
+def resize_linear_batch(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """`resize_linear` of each image of a (B, H, W) or (B, H, W, C) float32
+    batch: one weight matrix per resized axis, applied as a matrix product
+    along it (an axis of equal size is skipped)."""
+    for axis, size in ((1, out_hw[0]), (2, out_hw[1])):
+        if x.shape[axis] != size:
+            weights = linear_resize_weights(x.shape[axis], size).to(x.device)
+            x = torch.movedim(torch.movedim(x, axis, -1) @ weights, -1, axis)
+    return x
 
 
 def load_hohonet_state_dict(ckpt_fpath: str) -> dict:
@@ -390,18 +390,27 @@ def load_hohonet_state_dict(ckpt_fpath: str) -> dict:
     return sd
 
 
-def load_hohonet_depth_provider(ckpt_fpath: str, input_hw: Tuple[int, int] = INPUT_HW, device: DeviceLike = None):
+def load_hohonet(ckpt_fpath: str, input_hw: Tuple[int, int] = INPUT_HW, device: DeviceLike = None) -> HoHoNetDepth:
     """A HoHoNet `.pth` (ep60.pth of
     mp3d_depth_HOHO_depth_dct_efficienthc_TransEn1_hardnet, or any file in
-    its key layout) as a depth producer on `device` (None: the card), in
-    float32: (512, 1024, 3) float RGB in [0, 1] -> (512, 1024) float32
-    meters. `input_hw` is the resolution the checkpoint was built for; at
-    another one the pano is resized to it, and the depth back to 512x1024,
-    by `resize_linear` (salve_tpu/models/hohonet.py:539,544)."""
+    its key layout) loaded strictly into a HoHoNetDepth built for
+    `input_hw`, in eval mode on `device` (None: the card; raises without
+    one before the file is read)."""
     dev = resolve_device(device)
     model = HoHoNetDepth(input_hw)
     model.load_state_dict(load_hohonet_state_dict(ckpt_fpath), strict=True)
-    model = model.to(dev).eval()
+    return model.to(dev).eval()
+
+
+def load_hohonet_depth_provider(ckpt_fpath: str, input_hw: Tuple[int, int] = INPUT_HW, device: DeviceLike = None):
+    """`load_hohonet` as a depth producer for the cache (depth/cache.py) on
+    `device` (None: the card), in float32: (512, 1024, 3) float RGB in
+    [0, 1] -> (512, 1024) float32 meters. `input_hw` is the resolution the
+    checkpoint was built for; at another one the pano is resized to it, and
+    the depth back to 512x1024, by `resize_linear`
+    (salve_tpu/models/hohonet.py:539,544)."""
+    model = load_hohonet(ckpt_fpath, input_hw, device)
+    dev = model.head.coef.weight.device
     input_hw = tuple(input_hw)
 
     @torch.no_grad()

@@ -25,22 +25,33 @@ and two small copies out instead of ResNet-152's several hundred launches.
 It engages from what the code can observe, with no switch: the model's
 parameters on the card, every module in eval mode, grad off. The graph is
 keyed by the batch's shape, dtype and device and by the storage of every
-parameter and buffer (`verifier_key`, computed once a floor): a parameter
+parameter and buffer (`graph_key`, computed once a floor): a parameter
 replaced, or a state loaded with `assign=True`, captures anew, while a
 value changed in place is read by the next replay. Python attributes of the
 model are not keyed: a replay does not call `forward`, nor any hook. The
 CPU, and a model in training mode, run the verifier eagerly.
 
+A floor comes with its depth bank (u16 mm, as the depth cache holds it) or
+with RGB alone and a HoHoNet depth model (models/hohonet.py): then the
+floor's depth is computed on the card between the upload and the banks
+(`depth_mm_bank`: float32, one pano a forward, each forward replayed as one
+CUDA graph as the verifier's is, keyed alike), in the cache's millimetres,
+and nothing of it is kept after the call.
+
 Spans (utils/profiler.py; recorded only under a profiler): `floor` for the
-call (its id the running count of floors scored) with `upload`, `banks` and
-one `batch` a batch inside it; in a batch `prepare` (the padded chunk and
-its index and pose tensors), `score_batch`'s `warp`, `preprocess` and
-`verifier`, `fetch` (where the host waits for the card) and `collect`.
+call (its id the running count of floors scored) with `upload`, `depth`
+(only where the floor came without depth), `banks` and one `batch` a batch
+inside it; in a batch `prepare` (the padded chunk and its index and pose
+tensors), `score_batch`'s `warp`, `preprocess` and `verifier`, `fetch`
+(where the host waits for the card) and `collect`.
 Counters: `floors`, `hypotheses`, `panos`, `h2d_bytes` (the banks'
-upload and each batch's tensors), `rows` and `padded_rows` (a batch's
-rows, of them padding), `d2h_bytes`; in `verifier`, one of
-`verifier/graph_replays` (a batch the graph scored, the batch that captured
-it among them) or `verifier/eager` a batch, and `verifier/graph_captures`.
+upload, RGB alone where the depth is computed, and each batch's tensors),
+`depth/panos` (panos whose depth the call computed), `rows` and
+`padded_rows` (a batch's rows, of them padding), `d2h_bytes`; in
+`verifier`, one of `verifier/graph_replays` (a batch the graph scored, the
+batch that captured it among them) or `verifier/eager` a batch, and
+`verifier/graph_captures`; in `depth`, the same three `depth/` counters a
+forward.
 """
 
 from __future__ import annotations
@@ -53,6 +64,8 @@ import numpy as np
 import torch
 
 from salve_tpu_torch.device import DeviceLike, resolve_device
+from salve_tpu_torch.depth.cache import meters_to_mm
+from salve_tpu_torch.models.hohonet import resize_linear_batch
 from salve_tpu_torch.ops.backproject import CEILING_Z_RANGE, FLOOR_Z_RANGE
 from salve_tpu_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
 from salve_tpu_torch.rendering.bev_pair import (
@@ -97,7 +110,7 @@ def score_batch(
 
     In warp mode `depths`/`rgbs` hold the extended packed rgb888 warp banks
     of the ceiling and the floor instead of the raw pano banks. `key` is
-    `verifier_key(model)`, which a caller scoring many batches computes
+    `graph_key(model)`, which a caller scoring many batches computes
     once; None computes it here.
     """
     with profiler.annotate("warp"):
@@ -121,7 +134,7 @@ def score_batch(
         batch = transforms.resize_batch(batch, cfg.resize_h, cfg.resize_w)
         batch = transforms.preprocess_eval(batch, cfg.train_h, cfg.train_w)
     with profiler.annotate("verifier"):
-        return run_verifier(model, batch, verifier_key(model) if key is None else key)
+        return run_verifier(model, batch, graph_key(model) if key is None else key)
 
 
 def _verify(model: torch.nn.Module, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -133,17 +146,16 @@ def _verify(model: torch.nn.Module, batch: torch.Tensor) -> Tuple[torch.Tensor, 
 
 
 class _Graph(NamedTuple):
-    """A captured `_verify`: its static input and outputs. Holds no
-    reference to the model."""
+    """A captured body (`_verify`, `_depth`): its static input and outputs.
+    Holds no reference to the model."""
 
     graph: "torch.cuda.CUDAGraph"
-    batch: torch.Tensor
-    y_hat: torch.Tensor
-    prob: torch.Tensor
+    inp: torch.Tensor
+    out: Tuple[torch.Tensor, ...]
 
 
-# model -> (its parameter key, {batch key: _Graph}). Weak, so that a model's
-# graphs and their memory pools go with it.
+# model -> (its parameter key, {(body's counter name, input key): _Graph}).
+# Weak, so that a model's graphs and their memory pools go with it.
 _GRAPHS: "weakref.WeakKeyDictionary[torch.nn.Module, Tuple[tuple, Dict[tuple, _Graph]]]" = (
     weakref.WeakKeyDictionary())
 
@@ -164,7 +176,7 @@ def _walk(model: torch.nn.Module) -> Tuple[bool, tuple]:
 
 
 def parameter_key(model: torch.nn.Module) -> tuple:
-    """The storage a captured verifier reads besides its input: the data
+    """The storage a captured model reads besides its input: the data
     pointer of every parameter and buffer of `model`."""
     return _walk(model)[1]
 
@@ -173,54 +185,100 @@ def batch_key(batch: torch.Tensor) -> tuple:
     return tuple(batch.shape), batch.dtype, batch.device
 
 
-def verifier_key(model: torch.nn.Module) -> tuple:
-    """`parameter_key(model)` where the verifier can run as a CUDA graph:
-    every module in eval mode and every parameter and buffer on the card;
-    else () and the verifier runs eagerly."""
+def graph_key(model: torch.nn.Module) -> tuple:
+    """`parameter_key(model)` where the model can run as a CUDA graph: every
+    module in eval mode and every parameter and buffer on the card; else ()
+    and it runs eagerly."""
     graphable, key = _walk(model)
     return key if graphable else ()
 
 
-def run_verifier(model: torch.nn.Module, batch: torch.Tensor, key: tuple) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`_verify(model, batch)`, replayed from the graph of (`key`, the
-    batch's key) where `key` is not () (`verifier_key`), the batch is on the
-    card and grad is off, and captured first where there is none; eager
-    otherwise. The outputs are the caller's: no later replay writes them."""
-    if not key or batch.device.type != "cuda" or torch.is_grad_enabled():
-        profiler.count("verifier/eager")
-        return _verify(model, batch)
+def run_graphed(body, model: torch.nn.Module, x: torch.Tensor, key: tuple, name: str) -> Tuple[torch.Tensor, ...]:
+    """`body(model, x)` (a tuple of tensors), replayed from the graph of
+    (`key`, `name`, x's key) where `key` is not () (`graph_key`), x is on
+    the card and grad is off, and captured first where there is none; eager
+    otherwise. Counts `<name>/graph_replays` (the capturing call among
+    them), `<name>/graph_captures` or `<name>/eager`. The outputs are the
+    caller's: no later replay writes them."""
+    if not key or x.device.type != "cuda" or torch.is_grad_enabled():
+        profiler.count(f"{name}/eager")
+        return body(model, x)
     held = _GRAPHS.get(model)
     if held is None or held[0] != key:
         # New storage: the graphs that read the old go, with their pools.
         held = _GRAPHS[model] = (key, {})
-    graphs, shape = held[1], batch_key(batch)
+    graphs, shape = held[1], (name, batch_key(x))
     g = graphs.get(shape)
     if g is None:
-        g = graphs[shape] = _capture(model, batch)
-        profiler.count("verifier/graph_captures")
+        g = graphs[shape] = _capture(body, model, x)
+        profiler.count(f"{name}/graph_captures")
     else:
-        g.batch.copy_(batch)
+        g.inp.copy_(x)
     g.graph.replay()
-    profiler.count("verifier/graph_replays")
-    return g.y_hat.clone(), g.prob.clone()
+    profiler.count(f"{name}/graph_replays")
+    return tuple(t.clone() for t in g.out)
 
 
-def _capture(model: torch.nn.Module, batch: torch.Tensor) -> _Graph:
-    """The graph of `_verify` on a static copy of `batch`, after one eager
-    run on a side stream that makes cuDNN's choices outside the capture.
-    Autocast's cache of cast weights is off (the model's own bf16 block
-    inherits it), so that no cast made in the capture outlives it."""
-    static = batch.clone()
-    side = torch.cuda.Stream(batch.device)
-    side.wait_stream(torch.cuda.current_stream(batch.device))
+def run_verifier(model: torch.nn.Module, batch: torch.Tensor, key: tuple) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_verify(model, batch)` through `run_graphed` (`verifier/` counters)."""
+    return run_graphed(_verify, model, batch, key, "verifier")
+
+
+def _capture(body, model: torch.nn.Module, x: torch.Tensor) -> _Graph:
+    """The graph of `body` on a static copy of `x`, after one eager run on a
+    side stream that makes cuDNN's choices outside the capture. Autocast's
+    cache of cast weights is off (the verifier's own bf16 block inherits
+    it), so that no cast made in the capture outlives it."""
+    static = x.clone()
+    side = torch.cuda.Stream(x.device)
+    side.wait_stream(torch.cuda.current_stream(x.device))
     with torch.autocast("cuda", enabled=False, cache_enabled=False):
         with torch.cuda.stream(side):
-            _verify(model, static)
-        torch.cuda.current_stream(batch.device).wait_stream(side)
+            body(model, static)
+        torch.cuda.current_stream(x.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            y_hat, prob = _verify(model, static)
-    return _Graph(graph, static, y_hat, prob)
+            out = body(model, static)
+    return _Graph(graph, static, out)
+
+
+def _depth(model: torch.nn.Module, x: torch.Tensor) -> Tuple[torch.Tensor]:
+    return (model(x),)
+
+
+# Panos a forward in `depth_mm_bank`. One: on the H100 (cuDNN 9.22) at
+# 512x1024 in float32 a forward takes 12-17 ms a pano at batch 1 and no less
+# at batch 2, while from batch 3 cuDNN's algorithm choice (heuristic and
+# benchmarked alike) takes an FFT path for two of the trunk's 3x3
+# convolutions (296 -> 134 and 466 -> 168 channels at 64x128): 340-370 ms
+# each against 0.36 ms at batch 1, 67-240 ms a pano in all, with 43 GB of
+# workspace. At one pano a forward the bank is also, bit for bit, what the
+# cache's provider computes.
+DEPTH_CHUNK = 1
+
+
+@torch.no_grad()
+def depth_mm_bank(model: torch.nn.Module, rgbs: torch.Tensor, key: tuple = ()) -> torch.Tensor:
+    """A floor's depth bank computed where its RGB lies: (P, H, W, 3) float
+    RGB in [0, 1] on the HoHoNet `model`'s device -> (P, H, W) float32
+    millimetres, `depth/cache.py:meters_to_mm` of the depth, as the cache's
+    u16 PNGs hold them. Forwards of DEPTH_CHUNK panos, each replayed as one
+    CUDA graph where `key` (`graph_key(model)`) is not () (`run_graphed`,
+    `depth/` counters); at a model `input_hw` other than (H, W) each chunk
+    is resized to it and its depth back to (H, W) by `resize_linear_batch`.
+    The model runs as it is held: float32 on the card under the port's
+    numerics policy (device.py: TF32 off)."""
+    hw = tuple(rgbs.shape[1:3])
+    out = []
+    for start in range(0, rgbs.shape[0], DEPTH_CHUNK):
+        x = rgbs[start : start + DEPTH_CHUNK]
+        if hw != model.input_hw:
+            x = resize_linear_batch(x, model.input_hw)
+        (depth,) = run_graphed(_depth, model, x, key, "depth")
+        if hw != model.input_hw:
+            depth = resize_linear_batch(depth, hw)
+        out.append(meters_to_mm(depth))
+    return torch.cat(out).contiguous()
 
 
 @torch.no_grad()
@@ -249,7 +307,7 @@ def build_banks(
 def score_floor_hypotheses(
     model: torch.nn.Module,
     cfg: TrainingConfig,
-    depths: np.ndarray,
+    depths: Optional[np.ndarray],
     rgbs: np.ndarray,
     pano_id_to_bank_row: Dict[int, int],
     hypotheses: List[Tuple[int, int, object]],
@@ -258,13 +316,15 @@ def score_floor_hypotheses(
     use_warp_renders: Optional[bool] = None,
     device: DeviceLike = None,
     mesh: Optional[Mesh] = None,
+    depth_model: Optional[torch.nn.Module] = None,
 ) -> List[ScoredHypothesis]:
     """Score every (i1, i2, AlignmentHypothesis) of a floor.
 
     Args:
         model: the early-fusion verifier (ceiling+floor RGB modalities); it
             is moved to `device` and put in eval mode.
-        depths: (P, 512, 1024) depth bank in mm; rgbs: (P, 512, 1024, 3) in [0, 1].
+        depths: (P, 512, 1024) depth bank in mm, or None with a `depth_model`;
+            rgbs: (P, 512, 1024, 3) in [0, 1].
         pano_id_to_bank_row: pano ID -> bank row.
         hypotheses: (i1, i2, AlignmentHypothesis) triples.
         batch_size: hypotheses per batch (global across the mesh); the last
@@ -277,28 +337,44 @@ def score_floor_hypotheses(
             the plain versions of the kernels. With a mesh, the mesh's device.
         mesh: this rank's place on a mesh (parallel/mesh.py:make_mesh); each
             rank scores its rows of every batch. None: one device.
+        depth_model: a HoHoNetDepth (models/hohonet.py) that computes the
+            floor's depth from `rgbs` on `device`, where `depths` is None;
+            it is moved there and put in eval mode. On a mesh every rank
+            computes it.
     """
     dev = resolve_device(device) if mesh is None else mesh.device
     if mesh is not None and batch_size % mesh.size != 0:
         raise ValueError(f"batch_size {batch_size} not divisible by mesh size {mesh.size}")
     if set(cfg.modalities) != {"ceiling_rgb_texture", "floor_rgb_texture"}:
         raise ValueError("Fused inference supports the ceiling+floor RGB verifier.")
+    if (depths is None) == (depth_model is None):
+        raise ValueError("Give the floor's depths or a depth_model, not both or neither.")
     if not hypotheses:
         return []
     if use_warp_renders is None:
         use_warp_renders = dev.type == "cuda"
     floor_id = profiler.count("floors")
-    with profiler.annotate("floor", id=floor_id, panos=int(depths.shape[0])):
+    n_panos = int(rgbs.shape[0])
+    with profiler.annotate("floor", id=floor_id, panos=n_panos):
         profiler.count("hypotheses", len(hypotheses))
         model = model.to(dev).eval()
-        key = verifier_key(model)
+        key = graph_key(model)
+        if depth_model is not None:
+            depth_model = depth_model.to(dev).eval()
+            depth_key = graph_key(depth_model)
 
         with profiler.annotate("upload"):
             # uint16 mm -> float32 is exact; float32 banks index on every device.
-            depths_d = torch.as_tensor(np.asarray(depths, dtype=np.float32), device=dev)
+            if depths is not None:
+                depths_d = torch.as_tensor(np.asarray(depths, dtype=np.float32), device=dev)
+                profiler.count("h2d_bytes", depths_d.nbytes)
             rgbs_d = torch.as_tensor(np.asarray(rgbs, dtype=np.float32), device=dev)
-            profiler.count("panos", depths_d.shape[0])
-            profiler.count("h2d_bytes", depths_d.nbytes + rgbs_d.nbytes)
+            profiler.count("panos", n_panos)
+            profiler.count("h2d_bytes", rgbs_d.nbytes)
+        if depths is None:
+            with profiler.annotate("depth", panos=n_panos):
+                profiler.count("depth/panos", n_panos)
+                depths_d = depth_mm_bank(depth_model, rgbs_d, depth_key)
         with profiler.annotate("banks"):
             depths_d, rgbs_d, bank_ceil, bank_floor = build_banks(depths_d, rgbs_d, render_cfg, use_warp_renders)
 

@@ -251,6 +251,11 @@ NEW_CLI_CASES = [
 ]
 
 
+# Flags the port's CLIs have and salve_tpu's do not, with their defaults:
+# the fused scorer computes a floor's missing depth on the card.
+PORT_ONLY_FLAGS = {"test_fused": {"hohonet_ckpt": None, "hohonet_input_hw": "512,1024"}}
+
+
 @pytest.mark.parametrize("cli,command,cases", NEW_CLI_CASES, ids=[c[0] for c in NEW_CLI_CASES])
 def test_evaluation_cli_flags_parse_as_the_click_clis(tmp_path, cli, command, cases):
     """Flag for flag: the same names, defaults, types and values as the click
@@ -265,6 +270,8 @@ def test_evaluation_cli_flags_parse_as_the_click_clis(tmp_path, cli, command, ca
         argv = [{"PATH": str(tmp_path), "FILE": str(f)}.get(a, a) for a in case]
         got = vars(port.build_parser().parse_args(argv))
         assert got.pop("device", "cuda") == "cuda"
+        for flag, default in PORT_ONLY_FLAGS.get(cli, {}).items():
+            assert got.pop(flag) == default
         # A repeated flag: argparse appends to a list, click gathers a tuple.
         got = {k: tuple(v) if isinstance(v, list) else v for k, v in got.items()}
         assert got == click_cmd.make_context(cli, list(argv)).params

@@ -25,7 +25,7 @@ from salve_tpu_torch.pipeline.fused_inference import (
     parameter_key,
     run_verifier,
     score_floor_hypotheses,
-    verifier_key,
+    graph_key,
 )
 from salve_tpu_torch.rendering.bev_pair import BEVRenderConfig
 from salve_tpu_torch.training.config import TrainingConfig
@@ -111,15 +111,15 @@ def test_the_key_follows_the_batch_shape_and_the_parameters_storage_not_their_va
     assert batch_key(batch) != batch_key(torch.zeros(BATCH + 1, 4, 8, 8, 3))
     assert batch_key(batch) != batch_key(batch.double())
     # Off the card, or with a module in training mode, the verifier runs eagerly.
-    assert verifier_key(model) == ()
-    assert verifier_key(model.train()) == ()
+    assert graph_key(model) == ()
+    assert graph_key(model.train()) == ()
 
 
 def test_a_cpu_floor_scores_the_same_before_and_after_the_key_is_computed():
     model = make_model()
     before = score(model, 2 * BATCH + 1, "cpu")
     parameter_key(model)
-    assert verifier_key(model) == ()
+    assert graph_key(model) == ()
     assert score(model, 2 * BATCH + 1, "cpu") == before
 
 
@@ -163,7 +163,7 @@ def test_replays_equal_the_eager_verifier_on_the_same_batches(card, monkeypatch,
     assert len(seen) == n_batches and len(results) == n_batches * BATCH - 1
     with torch.no_grad():
         for batch, key, (y_hat, prob) in seen:
-            assert key == verifier_key(model) != ()
+            assert key == graph_key(model) != ()
             y_ref, p_ref = fused_inference._verify(model, batch)
             assert torch.equal(y_hat, y_ref)
             assert float((log_odds(y_hat, prob) - log_odds(y_ref, p_ref)).abs().max()) <= 0.01
@@ -191,11 +191,11 @@ def _card_batches(card, n):
 def test_a_replaced_parameter_captures_anew_and_the_answer_follows_it(card):
     model = make_model().to(card).eval()
     (batch,) = _card_batches(card, 1)
-    key = verifier_key(model)
+    key = graph_key(model)
     (_, p_old), added = counted(lambda: run_verifier(model, batch, key))
     assert added["graph_captures"] == 1
     model.fc.weight = torch.nn.Parameter(-model.fc.weight.detach())
-    new_key = verifier_key(model)
+    new_key = graph_key(model)
     assert new_key != key
     (y_hat, prob), added = counted(lambda: run_verifier(model, batch, new_key))
     assert added == {"graph_captures": 1, "graph_replays": 1, "eager": 0}
@@ -210,10 +210,10 @@ def test_a_replaced_parameter_captures_anew_and_the_answer_follows_it(card):
 def test_a_value_changed_in_place_is_read_by_the_next_replay_without_a_capture(card):
     model = make_model().to(card).eval()
     (batch,) = _card_batches(card, 1)
-    key = verifier_key(model)
+    key = graph_key(model)
     (_, p_old), _ = counted(lambda: run_verifier(model, batch, key))
     model.fc.weight.mul_(2)
-    assert verifier_key(model) == key
+    assert graph_key(model) == key
     (y_hat, prob), added = counted(lambda: run_verifier(model, batch, key))
     assert added == {"graph_captures": 0, "graph_replays": 1, "eager": 0}
     y_ref, p_ref = fused_inference._verify(model, batch)
@@ -223,7 +223,7 @@ def test_a_value_changed_in_place_is_read_by_the_next_replay_without_a_capture(c
     with torch.enable_grad():
         _, added = counted(lambda: run_verifier(model, batch, key))
     assert added == {"graph_captures": 0, "graph_replays": 0, "eager": 1}
-    assert verifier_key(model.train()) == ()
+    assert graph_key(model.train()) == ()
 
 
 @pytest.mark.card
@@ -231,7 +231,7 @@ def test_a_value_changed_in_place_is_read_by_the_next_replay_without_a_capture(c
 def test_the_answers_of_one_batch_survive_the_next_replay(card):
     model = make_model().to(card).eval()
     a, b = _card_batches(card, 2)
-    key = verifier_key(model)
+    key = graph_key(model)
     y_a, p_a = run_verifier(model, a, key)
     kept = y_a.clone(), p_a.clone()
     run_verifier(model, b, key)
