@@ -25,11 +25,17 @@ and two small copies out instead of ResNet-152's several hundred launches.
 It engages from what the code can observe, with no switch: the model's
 parameters on the card, every module in eval mode, grad off. The graph is
 keyed by the batch's shape, dtype and device and by the storage of every
-parameter and buffer (`graph_key`, computed once a floor): a parameter
-replaced, or a state loaded with `assign=True`, captures anew, while a
-value changed in place is read by the next replay. Python attributes of the
-model are not keyed: a replay does not call `forward`, nor any hook. The
-CPU, and a model in training mode, run the verifier eagerly.
+parameter and buffer (`graph_key`, computed once a floor by `place`): a
+parameter replaced, or a state loaded with `assign=True`, captures anew,
+while a value changed in place is read by the next replay. Python
+attributes of the model are not keyed: a replay does not call `forward`,
+nor any hook. The CPU, and a model in training mode, run the verifier
+eagerly.
+
+Each floor places its models with one walk a model (`place`): a model
+already on the floor's device and in eval mode, as a caller scoring floor
+after floor hands it in, is used as it is, and only a model found elsewhere
+or in training mode is moved and switched.
 
 A floor comes with its depth bank (u16 mm, as the depth cache holds it) or
 with RGB alone and a HoHoNet depth model (models/hohonet.py): then the
@@ -39,11 +45,12 @@ CUDA graph as the verifier's is, keyed alike), in the cache's millimetres,
 and nothing of it is kept after the call.
 
 Spans (utils/profiler.py; recorded only under a profiler): `floor` for the
-call (its id the running count of floors scored) with `upload`, `depth`
-(only where the floor came without depth), `banks` and one `batch` a batch
-inside it; in a batch `prepare` (the padded chunk and its index and pose
-tensors), `score_batch`'s `warp`, `preprocess` and `verifier`, `fetch`
-(where the host waits for the card) and `collect`.
+call (its id the running count of floors scored) with `place` (the
+models' placement and graph keys), `upload`, `depth` (only where the floor
+came without depth), `banks` and one `batch` a batch inside it; in a batch
+`prepare` (the padded chunk and its index and pose tensors),
+`score_batch`'s `warp`, `preprocess` and `verifier`, `fetch` (where the
+host waits for the card) and `collect`.
 Counters: `floors`, `hypotheses`, `panos`, `h2d_bytes` (the banks'
 upload, RGB alone where the depth is computed, and each batch's tensors),
 `depth/panos` (panos whose depth the call computed), `rows` and
@@ -51,7 +58,8 @@ upload, RGB alone where the depth is computed, and each batch's tensors),
 `verifier`, one of `verifier/graph_replays` (a batch the graph scored, the
 batch that captured it among them) or `verifier/eager` a batch, and
 `verifier/graph_captures`; in `depth`, the same three `depth/` counters a
-forward.
+forward; in `place`, one of `models/resident` (found placed) or
+`models/placed` (moved or switched to eval) a model.
 """
 
 from __future__ import annotations
@@ -160,25 +168,25 @@ _GRAPHS: "weakref.WeakKeyDictionary[torch.nn.Module, Tuple[tuple, Dict[tuple, _G
     weakref.WeakKeyDictionary())
 
 
-def _walk(model: torch.nn.Module) -> Tuple[bool, tuple]:
-    """(every module in eval mode and every parameter and buffer on the
-    card, the data pointer of each parameter and buffer), in one pass over
-    each module's own dicts: `parameters()` takes three times as long on
+def _walk(model: torch.nn.Module) -> Tuple[bool, set, tuple]:
+    """(every module in eval mode, the devices of the parameters and buffers,
+    the data pointer of each parameter and buffer), in one pass over each
+    module's own dicts: `parameters()` takes three times as long on
     ResNet-152."""
-    graphable, pointers = True, []
+    evaluating, devices, pointers = True, set(), []
     for m in model.modules():
-        graphable = graphable and not m.training
+        evaluating = evaluating and not m.training
         for t in itertools.chain(m._parameters.values(), m._buffers.values()):
             if t is not None:
-                graphable = graphable and t.is_cuda
+                devices.add(t.device)
                 pointers.append(t.data_ptr())
-    return graphable, tuple(pointers)
+    return evaluating, devices, tuple(pointers)
 
 
 def parameter_key(model: torch.nn.Module) -> tuple:
     """The storage a captured model reads besides its input: the data
     pointer of every parameter and buffer of `model`."""
-    return _walk(model)[1]
+    return _walk(model)[2]
 
 
 def batch_key(batch: torch.Tensor) -> tuple:
@@ -189,8 +197,29 @@ def graph_key(model: torch.nn.Module) -> tuple:
     """`parameter_key(model)` where the model can run as a CUDA graph: every
     module in eval mode and every parameter and buffer on the card; else ()
     and it runs eagerly."""
-    graphable, key = _walk(model)
-    return key if graphable else ()
+    evaluating, devices, key = _walk(model)
+    return key if evaluating and all(d.type == "cuda" for d in devices) else ()
+
+
+def place(model: torch.nn.Module, dev: torch.device) -> Tuple[torch.nn.Module, tuple]:
+    """`model` on `dev` in eval mode, with its `graph_key`. One walk finds
+    whether it is there already (`models/resident`); then neither `.to` nor
+    `.eval` runs, each of which would walk every module to change nothing
+    (no module of the port overrides `train` or `_apply`, so skipping them
+    skips no side effect). Otherwise it is moved and switched
+    (`models/placed`) and walked again for its key. An index-less `cuda` is
+    the current card, as `.to` takes it, so a model on another card is
+    moved."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    evaluating, devices, key = _walk(model)
+    if evaluating and devices <= {dev}:
+        profiler.count("models/resident")
+    else:
+        model = model.to(dev).eval()
+        profiler.count("models/placed")
+        key = parameter_key(model)
+    return model, key if dev.type == "cuda" else ()
 
 
 def run_graphed(body, model: torch.nn.Module, x: torch.Tensor, key: tuple, name: str) -> Tuple[torch.Tensor, ...]:
@@ -322,7 +351,8 @@ def score_floor_hypotheses(
 
     Args:
         model: the early-fusion verifier (ceiling+floor RGB modalities); it
-            is moved to `device` and put in eval mode.
+            is moved to `device` and put in eval mode (`place`: a model
+            already there is used as it is).
         depths: (P, 512, 1024) depth bank in mm, or None with a `depth_model`;
             rgbs: (P, 512, 1024, 3) in [0, 1].
         pano_id_to_bank_row: pano ID -> bank row.
@@ -357,11 +387,10 @@ def score_floor_hypotheses(
     n_panos = int(rgbs.shape[0])
     with profiler.annotate("floor", id=floor_id, panos=n_panos):
         profiler.count("hypotheses", len(hypotheses))
-        model = model.to(dev).eval()
-        key = graph_key(model)
-        if depth_model is not None:
-            depth_model = depth_model.to(dev).eval()
-            depth_key = graph_key(depth_model)
+        with profiler.annotate("place"):
+            model, key = place(model, dev)
+            if depth_model is not None:
+                depth_model, depth_key = place(depth_model, dev)
 
         with profiler.annotate("upload"):
             # uint16 mm -> float32 is exact; float32 banks index on every device.

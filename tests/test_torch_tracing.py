@@ -25,7 +25,7 @@ TINY = dict(num_layers=18, resize_h=64, resize_w=64, train_h=56, train_w=56,
 SMALL = dict(num_layers=18, resize_h=40, resize_w=40, train_h=32, train_w=32, batch_size=8,
              compute_dtype="float32", print_every=1)
 PANOS, HW, BATCH, N_HYPS = 3, (64, 128), 2, 5
-FLOOR_SPANS = ("salve/upload", "salve/banks")
+FLOOR_SPANS = ("salve/place", "salve/upload", "salve/banks")
 BATCH_SPANS = ("salve/prepare", "salve/warp", "salve/preprocess", "salve/verifier", "salve/fetch", "salve/collect")
 STEP_SPANS = ("salve/augment", "salve/forward", "salve/backward", "salve/optimizer")
 
@@ -98,6 +98,8 @@ def test_counts_equal_what_the_shapes_give(traced_floor):
     for s in record:
         by.setdefault(s["name"], []).append(s["counts"])
     assert by["salve/floor"] == [{"panos": PANOS, "hypotheses": N_HYPS}]
+    # The fixture's first floor put the model in eval: the traced one finds it placed.
+    assert by["salve/place"] == [{"models/resident": 1}]
     pixels = PANOS * HW[0] * HW[1]
     assert by["salve/upload"] == [{"panos": PANOS, "h2d_bytes": pixels * 4 + pixels * 3 * 4}]
     assert [c["rows"] for c in by["salve/batch"]] == [BATCH] * 3

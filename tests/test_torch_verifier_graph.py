@@ -1,7 +1,9 @@
 """The scorer's verifier as a CUDA graph (pipeline/fused_inference.py:
 `run_verifier`): eager on the CPU, keyed by the batch's shape and the
 parameters' storage, and on the card replayed with the answers of the eager
-verifier on the same batches.
+verifier on the same batches; and the scorer's placement of its models
+(`place`): moved and put in eval where they are not, used as they are where
+they are, with the same answers either way.
 
 The CPU tests run everywhere. The tests marked `card` skip without a CUDA
 card; on the card, with no JAX installed:
@@ -9,6 +11,7 @@ card; on the card, with no JAX installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_verifier_graph.py
 """
 
+import copy
 import gc
 import weakref
 
@@ -19,10 +22,12 @@ import torch
 from salve_tpu_torch.common.alignment_hypothesis import AlignmentHypothesis
 from salve_tpu_torch.geometry.sim2 import Sim2
 from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet
+from salve_tpu_torch.models.hohonet import seeded_hohonet
 from salve_tpu_torch.pipeline import fused_inference
 from salve_tpu_torch.pipeline.fused_inference import (
     batch_key,
     parameter_key,
+    place,
     run_verifier,
     score_floor_hypotheses,
     graph_key,
@@ -36,6 +41,7 @@ TINY = dict(num_layers=18, resize_h=64, resize_w=64, train_h=56, train_w=56,
             modalities=("ceiling_rgb_texture", "floor_rgb_texture"), compute_dtype="bfloat16")
 PANOS, HW, BATCH = 3, (64, 128), 4
 COUNTERS = ("verifier/graph_captures", "verifier/graph_replays", "verifier/eager")
+MODELS = ("models/resident", "models/placed")
 
 
 def hypotheses(n):
@@ -59,17 +65,46 @@ def banks():
 
 def score(model, n_hyps, device, batch_size=BATCH, **kw):
     depths, rgbs = banks()
+    if kw.get("depth_model") is not None:
+        depths = None
     return score_floor_hypotheses(model, TrainingConfig(**TINY), depths, rgbs, {0: 0, 1: 1, 2: 2},
                                   hypotheses(n_hyps), batch_size=batch_size,
                                   render_cfg=BEVRenderConfig(img_px=100, meters_per_px=0.1),
                                   use_warp_renders=True, device=device, **kw)
 
 
-def counted(fn):
-    """fn()'s result and what it added to each verifier counter."""
-    before = {n: profiler.counter(n) for n in COUNTERS}
+def counted(fn, names=COUNTERS):
+    """fn()'s result and what it added to each counter of `names` (the
+    verifier's by default)."""
+    before = {n: profiler.counter(n) for n in names}
     out = fn()
-    return out, {n.split("/")[1]: profiler.counter(n) - before[n] for n in COUNTERS}
+    return out, {n.split("/")[1]: profiler.counter(n) - before[n] for n in names}
+
+
+def parent_place(model, dev):
+    """The placement the scorer made before `place`: `.to` and `.eval` on
+    every floor."""
+    model = model.to(dev).eval()
+    return model, graph_key(model)
+
+
+def counting_to_and_train(monkeypatch):
+    """The calls of `nn.Module.to` and `nn.Module.train` (which `eval` calls)
+    made from here on, by name."""
+    calls = []
+    to, train = torch.nn.Module.to, torch.nn.Module.train
+
+    def counting_to(self, *args, **kwargs):
+        calls.append("to")
+        return to(self, *args, **kwargs)
+
+    def counting_train(self, mode=True):
+        calls.append("train")
+        return train(self, mode)
+
+    monkeypatch.setattr(torch.nn.Module, "to", counting_to)
+    monkeypatch.setattr(torch.nn.Module, "train", counting_train)
+    return calls
 
 
 def log_odds(y_hat, prob):
@@ -121,6 +156,41 @@ def test_a_cpu_floor_scores_the_same_before_and_after_the_key_is_computed():
     parameter_key(model)
     assert graph_key(model) == ()
     assert score(model, 2 * BATCH + 1, "cpu") == before
+
+
+@pytest.mark.parametrize("fresh", [False, True], ids=["depth_bank", "depth_model"])
+def test_a_floor_places_its_models_once_and_then_finds_them_resident(monkeypatch, fresh):
+    model = make_model()
+    depth_model = seeded_hohonet(HW, seed=3).train() if fresh else None
+    n_models = 2 if fresh else 1
+    n_hyps = 2 * BATCH + 1
+    with monkeypatch.context() as m:
+        m.setattr(fused_inference, "place", parent_place)
+        kept, kept_depth = copy.deepcopy(model), copy.deepcopy(depth_model)
+        parent = [score(kept, n_hyps, "cpu", depth_model=kept_depth) for _ in range(2)]
+
+    first, added = counted(lambda: score(model, n_hyps, "cpu", depth_model=depth_model), MODELS)
+    assert added == {"resident": 0, "placed": n_models}
+    assert not any(m.training for net in (model, depth_model) if net is not None for m in net.modules())
+    calls = counting_to_and_train(monkeypatch)
+    second, added = counted(lambda: score(model, n_hyps, "cpu", depth_model=depth_model), MODELS)
+    assert added == {"resident": n_models, "placed": 0}
+    assert calls == []
+    assert [first, second] == parent
+
+
+@pytest.mark.parametrize("why,dev", [("one_module_training", "cpu"), ("on_another_device", "meta")])
+def test_place_moves_and_switches_a_model_found_out_of_place(why, dev):
+    dev = torch.device(dev)
+    model = make_model().eval()
+    if why == "one_module_training":
+        model.resnet.layer1[1].bn2.train()
+    (placed, key), added = counted(lambda: place(model, dev), MODELS)
+    assert added == {"resident": 0, "placed": 1} and placed is model and key == ()
+    assert not any(m.training for m in model.modules())
+    assert {t.device for t in model.state_dict().values()} == {dev}
+    _, added = counted(lambda: place(model, dev), MODELS)
+    assert added == {"resident": 1, "placed": 0}
 
 
 def test_a_cpu_batch_runs_the_verifier_eagerly_whatever_the_key():
@@ -179,6 +249,38 @@ def test_one_capture_serves_every_batch_of_a_shape_and_a_second_shape_captures_a
     _, added = counted(lambda: score(model, 3 * BATCH, card, batch_size=2 * BATCH))
     assert added == {"graph_captures": 1, "graph_replays": 2, "eager": 0}
     assert len(fused_inference._GRAPHS[model][1]) == 2
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("between,captures", [("nothing", 0), ("a_parameter_replaced", 1),
+                                              ("a_value_changed_in_place", 0)])
+def test_a_resident_model_replays_on_its_next_floor_and_captures_only_for_new_storage(card, between, captures):
+    model, twin = make_model(), make_model()
+    score(model, 2 * BATCH, card)
+    with torch.no_grad():
+        if between == "a_parameter_replaced":
+            model.fc.weight = torch.nn.Parameter(-model.fc.weight.detach())
+        elif between == "a_value_changed_in_place":
+            model.fc.weight.mul_(-1)
+        if between != "nothing":
+            twin.fc.weight.mul_(-1)
+    results, added = counted(lambda: score(model, 2 * BATCH, card), COUNTERS + MODELS)
+    assert added == {"graph_captures": captures, "graph_replays": 2, "eager": 0, "resident": 1, "placed": 0}
+    # The same weights placed afresh (moved from the CPU) score alike.
+    twins, added = counted(lambda: score(twin, 2 * BATCH, card), MODELS)
+    assert added == {"resident": 0, "placed": 1}
+    assert results == twins
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", ["cuda", "cuda:<current>"])
+def test_a_model_on_the_current_card_is_resident_whatever_the_card_is_called(card, name):
+    index = torch.cuda.current_device()
+    model = make_model().to(torch.device("cuda", index)).eval()
+    dev = torch.device(name.replace("<current>", str(index)))
+    (placed, key), added = counted(lambda: place(model, dev), MODELS)
+    assert added == {"resident": 1, "placed": 0}
+    assert placed is model and key == graph_key(model) != ()
 
 
 def _card_batches(card, n):
