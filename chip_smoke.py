@@ -507,7 +507,7 @@ def run(dev) -> dict:
     from salve_tpu_torch.ops import bev, fill, kernels, splat, warp
     from salve_tpu_torch.ops.backproject import CEILING_Z_RANGE, FLOOR_Z_RANGE
     from salve_tpu_torch.pipeline.fused_inference import score_floor_hypotheses
-    from salve_tpu_torch.rendering.bev_pair import BEVRenderConfig, surface_clouds
+    from salve_tpu_torch.rendering.bev_pair import BEVRenderConfig, render_identity_banks, surface_clouds
     from salve_tpu_torch.training.config import TrainingConfig
 
     n_panos, pano_h, pano_w, img_px, batch = 4, 512, 1024, 500, 32
@@ -593,9 +593,8 @@ def run(dev) -> dict:
     if int(mismatches):
         raise AssertionError("B2's quotient differs from IEEE division")
 
-    banks = tuple(warp.pack_rgb888(
-        warp.render_identity_bank_extended(depths, rgbs, zr, render_cfg, bank_px)
-    ).contiguous() for zr in (CEILING_Z_RANGE, FLOOR_Z_RANGE))
+    banks = tuple(render_identity_banks(depths, rgbs, zr, render_cfg, bank_px)[1]
+                  for zr in (CEILING_Z_RANGE, FLOOR_Z_RANGE))
     ext = banks[1]
     # 8 hypotheses in each rot90 branch; then two bank rows outside the bank.
     R, t, idx = random_hypotheses(rng, batch, n_panos, dev, branches=np.arange(batch) % 4)
@@ -1722,8 +1721,9 @@ def corpus_phase(dev, root: Path) -> dict:
     depths = torch.as_tensor(np.stack([bev_pair.load_depth_mm(str(root / "depth" / bid0 / f"{Path(panos[bid0][i]).stem}.depth.png"))
                                        for i in ids]).astype(np.float32), device=dev)
     rgbs = torch.as_tensor(np.stack([bev_pair.load_pano_rgb(panos[bid0][i]) for i in ids]).astype(np.float32), device=dev)
-    bank = warp.pack_rgb888(warp.render_identity_bank_extended(depths, rgbs, bev_pair._z_range_for_surface("floor"),
-                                                               bev_pair.BEVRenderConfig()))
+    render_cfg = bev_pair.BEVRenderConfig()
+    _, bank = bev_pair.render_identity_banks(depths, rgbs, bev_pair._z_range_for_surface("floor"), render_cfg,
+                                             2 * render_cfg.img_px)
     bank_np = bank.cpu().numpy()
     files = sorted((root / "hyp" / bid0 / "floor_01" / "incorrect_alignment").glob("*.json"))[: dr.WARP_BATCH_SIZE]
     sims = [Sim2.from_json(f) for f in files]
@@ -3132,8 +3132,9 @@ def time_breakdown(model, cfg, render_cfg, depths, rgbs, hyps, dev) -> dict:
     import numpy as np
     import torch
 
-    from salve_tpu_torch.pipeline.fused_inference import build_banks, score_batch
+    from salve_tpu_torch.pipeline.fused_inference import build_banks, place, score_batch
 
+    model = place(model, dev)  # on the card: the verifier replays its graph, as in the scorer
     banks = build_banks(depths, rgbs, render_cfg, True)
     i1 = torch.tensor([h[0] for h in hyps], device=dev)
     i2 = torch.tensor([h[1] for h in hyps], device=dev)

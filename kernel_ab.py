@@ -54,6 +54,7 @@ def child(tree: Path) -> dict:
     from salve_tpu_torch.dataset.synthetic_bank import make_synthetic_pano_bank
     from salve_tpu_torch.ops import bev, fill, kernels, splat, warp
     from salve_tpu_torch.ops.backproject import CEILING_Z_RANGE, FLOOR_Z_RANGE
+    from salve_tpu_torch.rendering import bev_pair
     from salve_tpu_torch.rendering.bev_pair import BEVRenderConfig, surface_clouds
 
     h = harness()
@@ -87,8 +88,12 @@ def child(tree: Path) -> dict:
             raise AssertionError(f"{tree}: B2 disagrees with its plain version at {name}")
         res[name + "_ms"] = h.time_ms(lambda: fill.fill_and_mask(*args), rounds=7)
 
-    banks = tuple(warp.pack_rgb888(warp.render_identity_bank_extended(depths, rgbs, zr, cfg, 1000)).contiguous()
-                  for zr in (CEILING_Z_RANGE, FLOOR_Z_RANGE))
+    if hasattr(bev_pair, "render_identity_banks"):  # a tree that renders both banks of a surface from one cloud
+        banks = tuple(bev_pair.render_identity_banks(depths, rgbs, zr, cfg, 1000)[1]
+                      for zr in (CEILING_Z_RANGE, FLOOR_Z_RANGE))
+    else:
+        banks = tuple(warp.pack_rgb888(warp.render_identity_bank_extended(depths, rgbs, zr, cfg, 1000)).contiguous()
+                      for zr in (CEILING_Z_RANGE, FLOOR_Z_RANGE))
     pair = hasattr(warp, "warp_banks_auto")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
     for n in range(4):

@@ -1,7 +1,8 @@
 """Sim(2) BEV warp: hypothesis renders from banked identity renders (kernel B3).
 
 Port of salve_tpu/ops/warp.py. Each pano is rendered once per surface into
-an extended identity bank (packed rgb888 int32); every hypothesis render of
+an extended identity bank (packed rgb888 int32;
+rendering/bev_pair.py:render_identity_banks); every hypothesis render of
 pano 1 is then a nearest-neighbour Sim(2) resample of that bank.
 
 Two warps, as in the JAX package:
@@ -27,9 +28,6 @@ from salve_tpu_torch import device as device_mod
 from salve_tpu_torch.ops import kernels
 from salve_tpu_torch.ops.bev import DEFAULT_BEV_IMG_PX, DEFAULT_METERS_PER_PX
 from salve_tpu_torch.ops.numerics import div_const, fma_f32
-
-# Extended identity-bank extent for warp sources: +-10 m at 0.02 m/px.
-DEFAULT_WARP_BANK_PX = 1000
 
 # Target-grid world coordinates of the host warp, by (H, W, mpp, half extent).
 _HOST_GRID_CACHE: dict = {}
@@ -170,25 +168,6 @@ def warp_bank_sim2_nn_host(
         got = packed.reshape(-1)[page + flat]
     got = np.where(inb, got, 0)
     return np.stack([(got >> 16) & 0xFF, (got >> 8) & 0xFF, got & 0xFF], axis=-1).astype(np.uint8)
-
-
-def render_identity_bank_extended(
-    depths: torch.Tensor,
-    rgbs: torch.Tensor,
-    z_range: Tuple[float, float],
-    cfg,
-    bank_px: int = DEFAULT_WARP_BANK_PX,
-) -> torch.Tensor:
-    """Identity renders on a (bank_px+1)^2 grid, the warp sources.
-
-    The production render path of rendering/bev_pair.py:render_identity_batched
-    on a larger grid: the same points, only the grid grows.
-    """
-    from salve_tpu_torch.ops.bev import render_bev_images_batched
-    from salve_tpu_torch.rendering.bev_pair import surface_clouds
-
-    xyz, c, v = surface_clouds(depths, rgbs, z_range, cfg)
-    return render_bev_images_batched(xyz, c, v, bank_px, cfg.meters_per_px)
 
 
 # ---------------------------------------------------------------------------

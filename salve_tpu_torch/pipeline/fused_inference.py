@@ -8,8 +8,10 @@ host round trip of images. Output is the per-hypothesis (y_hat, prob)
 record Stage D consumes.
 
 Kernels on this path: B1 (splat) and B2 (fill + mask) for the identity and
-warp banks, and in warp mode B3 (shear warp), one launch a batch for the
-ceiling and the floor; B1 and B2 per hypothesis in direct mode.
+warp banks (in warp mode both of a surface from one backprojection,
+rendering/bev_pair.py:render_identity_banks), and in warp mode B3 (shear
+warp), one launch a batch for the ceiling and the floor; B1 and B2 per
+hypothesis in direct mode.
 
 On a mesh of N ranks (parallel/mesh.py; salve_tpu's shard_map scorer,
 `make_fused_score_fn_sharded`) every rank renders the floor's banks itself,
@@ -22,31 +24,30 @@ probability) runs on the card as one CUDA graph a batch shape: captured on
 the first batch of a shape, after an eager warm-up, and replayed for every
 later one, which the host launches at the cost of one copy in, one launch
 and two small copies out instead of ResNet-152's several hundred launches.
-It engages from what the code can observe, with no switch: the model's
-parameters on the card, every module in eval mode, grad off. The graph is
-keyed by the batch's shape, dtype and device and by the storage of every
-parameter and buffer (`graph_key`, computed once a floor by `place`): a
-parameter replaced, or a state loaded with `assign=True`, captures anew,
-while a value changed in place is read by the next replay. Python
-attributes of the model are not keyed: a replay does not call `forward`,
-nor any hook. The CPU, and a model in training mode, run the verifier
-eagerly.
-
 Each floor places its models with one walk a model (`place`): a model
 already on the floor's device and in eval mode, as a caller scoring floor
 after floor hands it in, is used as it is, and only a model found elsewhere
-or in training mode is moved and switched.
+or in training mode is moved and switched. `place` alone decides graph or
+eager: on the card it records the storage of every parameter and buffer in
+`_GRAPHS`, and a model with such an entry runs as graphs (`run_graphed`)
+where it is in eval mode, its input is on the card and grad is off. The graphs are keyed by the
+input's shape, dtype and device; a parameter replaced, or a state loaded
+with `assign=True`, is found by the next `place`, which drops the model's
+graphs, while a value changed in place is read by the next replay. Python
+attributes of the model are not keyed: a replay does not call `forward`,
+nor any hook. The CPU runs the verifier eagerly, as does a model `place`
+has not seen on the card or one switched to training mode since.
 
 A floor comes with its depth bank (u16 mm, as the depth cache holds it) or
 with RGB alone and a HoHoNet depth model (models/hohonet.py): then the
 floor's depth is computed on the card between the upload and the banks
 (`depth_mm_bank`: float32, one pano a forward, each forward replayed as one
-CUDA graph as the verifier's is, keyed alike), in the cache's millimetres,
+CUDA graph as the verifier's is), in the cache's millimetres,
 and nothing of it is kept after the call.
 
 Spans (utils/profiler.py; recorded only under a profiler): `floor` for the
 call (its id the running count of floors scored) with `place` (the
-models' placement and graph keys), `upload`, `depth` (only where the floor
+models' placement), `upload`, `depth` (only where the floor
 came without depth), `banks` and one `batch` a batch inside it; in a batch
 `prepare` (the padded chunk and its index and pose tensors),
 `score_batch`'s `warp`, `preprocess` and `verifier`, `fetch` (where the
@@ -75,10 +76,12 @@ from salve_tpu_torch.device import DeviceLike, resolve_device
 from salve_tpu_torch.depth.cache import meters_to_mm
 from salve_tpu_torch.models.hohonet import resize_linear_batch
 from salve_tpu_torch.ops.backproject import CEILING_Z_RANGE, FLOOR_Z_RANGE
+from salve_tpu_torch.ops.warp import warp_banks_auto
 from salve_tpu_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
 from salve_tpu_torch.rendering.bev_pair import (
     BEVRenderConfig,
     HOHO_S_ZIND_SCALE_FACTOR,
+    render_identity_banks,
     render_identity_batched,
     render_transformed_batched,
 )
@@ -112,19 +115,17 @@ def score_batch(
     i2_idx: torch.Tensor,
     rotations: torch.Tensor,
     translations: torch.Tensor,
-    key: Optional[tuple] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused render -> preprocess -> verify batch (JAX `_make_score_body`).
 
     In warp mode `depths`/`rgbs` hold the extended packed rgb888 warp banks
-    of the ceiling and the floor instead of the raw pano banks. `key` is
-    `graph_key(model)`, which a caller scoring many batches computes
-    once; None computes it here.
+    of the ceiling and the floor instead of the raw pano banks. The verifier
+    replays its graph where `place` put `model` on the card and it is still in
+    eval mode; a caller who replaces, moves or reloads its parameters after
+    that calls `place` again before the next batch.
     """
     with profiler.annotate("warp"):
         if use_warp_renders:
-            from salve_tpu_torch.ops.warp import warp_banks_auto
-
             t_scaled = translations * HOHO_S_ZIND_SCALE_FACTOR
             ceil1, floor1 = warp_banks_auto(
                 (depths, rgbs), rotations, t_scaled, render_cfg.img_px, render_cfg.meters_per_px,
@@ -142,7 +143,7 @@ def score_batch(
         batch = transforms.resize_batch(batch, cfg.resize_h, cfg.resize_w)
         batch = transforms.preprocess_eval(batch, cfg.train_h, cfg.train_w)
     with profiler.annotate("verifier"):
-        return run_verifier(model, batch, graph_key(model) if key is None else key)
+        return run_graphed(_verify, model, batch, "verifier")
 
 
 def _verify(model: torch.nn.Module, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,7 +163,8 @@ class _Graph(NamedTuple):
     out: Tuple[torch.Tensor, ...]
 
 
-# model -> (its parameter key, {(body's counter name, input key): _Graph}).
+# model -> (the data pointer of each parameter and buffer as `place` found
+# them on the card, {(body's counter name, input shape, dtype, device): _Graph}).
 # Weak, so that a model's graphs and their memory pools go with it.
 _GRAPHS: "weakref.WeakKeyDictionary[torch.nn.Module, Tuple[tuple, Dict[tuple, _Graph]]]" = (
     weakref.WeakKeyDictionary())
@@ -183,60 +185,48 @@ def _walk(model: torch.nn.Module) -> Tuple[bool, set, tuple]:
     return evaluating, devices, tuple(pointers)
 
 
-def parameter_key(model: torch.nn.Module) -> tuple:
-    """The storage a captured model reads besides its input: the data
-    pointer of every parameter and buffer of `model`."""
-    return _walk(model)[2]
+def place(model: torch.nn.Module, dev: torch.device) -> torch.nn.Module:
+    """`model` on `dev` in eval mode. One walk finds whether it is there
+    already (`models/resident`); then neither `.to` nor `.eval` runs, each of
+    which would walk every module to change nothing (no module of the port
+    overrides `train` or `_apply`, so skipping them skips no side effect).
+    Otherwise it is moved and switched (`models/placed`) and walked again. An
+    index-less `cuda` is the current card, as `.to` takes it, so a model on
+    another card is moved.
 
-
-def batch_key(batch: torch.Tensor) -> tuple:
-    return tuple(batch.shape), batch.dtype, batch.device
-
-
-def graph_key(model: torch.nn.Module) -> tuple:
-    """`parameter_key(model)` where the model can run as a CUDA graph: every
-    module in eval mode and every parameter and buffer on the card; else ()
-    and it runs eagerly."""
-    evaluating, devices, key = _walk(model)
-    return key if evaluating and all(d.type == "cuda" for d in devices) else ()
-
-
-def place(model: torch.nn.Module, dev: torch.device) -> Tuple[torch.nn.Module, tuple]:
-    """`model` on `dev` in eval mode, with its `graph_key`. One walk finds
-    whether it is there already (`models/resident`); then neither `.to` nor
-    `.eval` runs, each of which would walk every module to change nothing
-    (no module of the port overrides `train` or `_apply`, so skipping them
-    skips no side effect). Otherwise it is moved and switched
-    (`models/placed`) and walked again for its key. An index-less `cuda` is
-    the current card, as `.to` takes it, so a model on another card is
-    moved."""
+    On the card the model's entry in `_GRAPHS` holds the storage the walk
+    found, and storage other than the entry's drops its graphs: it runs as
+    graphs from here on. Off the card it has no entry and runs eagerly."""
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    evaluating, devices, key = _walk(model)
+    evaluating, devices, pointers = _walk(model)
     if evaluating and devices <= {dev}:
         profiler.count("models/resident")
     else:
         model = model.to(dev).eval()
         profiler.count("models/placed")
-        key = parameter_key(model)
-    return model, key if dev.type == "cuda" else ()
+        pointers = _walk(model)[2]
+    if dev.type != "cuda":
+        _GRAPHS.pop(model, None)
+    elif model not in _GRAPHS or _GRAPHS[model][0] != pointers:
+        # New storage: the graphs that read the old go, with their pools.
+        _GRAPHS[model] = (pointers, {})
+    return model
 
 
-def run_graphed(body, model: torch.nn.Module, x: torch.Tensor, key: tuple, name: str) -> Tuple[torch.Tensor, ...]:
-    """`body(model, x)` (a tuple of tensors), replayed from the graph of
-    (`key`, `name`, x's key) where `key` is not () (`graph_key`), x is on
-    the card and grad is off, and captured first where there is none; eager
-    otherwise. Counts `<name>/graph_replays` (the capturing call among
-    them), `<name>/graph_captures` or `<name>/eager`. The outputs are the
-    caller's: no later replay writes them."""
-    if not key or x.device.type != "cuda" or torch.is_grad_enabled():
+def run_graphed(body, model: torch.nn.Module, x: torch.Tensor, name: str) -> Tuple[torch.Tensor, ...]:
+    """`body(model, x)` (a tuple of tensors), replayed from the model's graph
+    of `name` and x's shape, dtype and device where `place` gave the model an
+    entry, it is in eval mode (the root's flag: `place` switches every
+    module), x is on the card and grad is off, and captured first where there
+    is none; eager otherwise. Counts `<name>/graph_replays` (the capturing
+    call among them), `<name>/graph_captures` or `<name>/eager`. The outputs
+    are the caller's: no later replay writes them."""
+    held = _GRAPHS.get(model)
+    if held is None or model.training or x.device.type != "cuda" or torch.is_grad_enabled():
         profiler.count(f"{name}/eager")
         return body(model, x)
-    held = _GRAPHS.get(model)
-    if held is None or held[0] != key:
-        # New storage: the graphs that read the old go, with their pools.
-        held = _GRAPHS[model] = (key, {})
-    graphs, shape = held[1], (name, batch_key(x))
+    graphs, shape = held[1], (name, tuple(x.shape), x.dtype, x.device)
     g = graphs.get(shape)
     if g is None:
         g = graphs[shape] = _capture(body, model, x)
@@ -246,11 +236,6 @@ def run_graphed(body, model: torch.nn.Module, x: torch.Tensor, key: tuple, name:
     g.graph.replay()
     profiler.count(f"{name}/graph_replays")
     return tuple(t.clone() for t in g.out)
-
-
-def run_verifier(model: torch.nn.Module, batch: torch.Tensor, key: tuple) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`_verify(model, batch)` through `run_graphed` (`verifier/` counters)."""
-    return run_graphed(_verify, model, batch, key, "verifier")
 
 
 def _capture(body, model: torch.nn.Module, x: torch.Tensor) -> _Graph:
@@ -287,23 +272,28 @@ DEPTH_CHUNK = 1
 
 
 @torch.no_grad()
-def depth_mm_bank(model: torch.nn.Module, rgbs: torch.Tensor, key: tuple = ()) -> torch.Tensor:
+def depth_mm_bank(model: torch.nn.Module, rgbs: torch.Tensor, chunk: int = DEPTH_CHUNK) -> torch.Tensor:
     """A floor's depth bank computed where its RGB lies: (P, H, W, 3) float
     RGB in [0, 1] on the HoHoNet `model`'s device -> (P, H, W) float32
     millimetres, `depth/cache.py:meters_to_mm` of the depth, as the cache's
-    u16 PNGs hold them. Forwards of DEPTH_CHUNK panos, each replayed as one
-    CUDA graph where `key` (`graph_key(model)`) is not () (`run_graphed`,
+    u16 PNGs hold them. Forwards of `chunk` panos, each replayed as one
+    CUDA graph where `place` put the model on the card (`run_graphed`,
     `depth/` counters); at a model `input_hw` other than (H, W) each chunk
     is resized to it and its depth back to (H, W) by `resize_linear_batch`.
     The model runs as it is held: float32 on the card under the port's
-    numerics policy (device.py: TF32 off)."""
+    numerics policy (device.py: TF32 off).
+
+    The scorer passes `DEPTH_CHUNK` for `chunk`, which is a parameter only
+    because the benchmark's stand-in for this function
+    (benchmark/tests/test_bench_fresh.py) passes exactly three positional
+    arguments on (ROADMAP G11)."""
     hw = tuple(rgbs.shape[1:3])
     out = []
-    for start in range(0, rgbs.shape[0], DEPTH_CHUNK):
-        x = rgbs[start : start + DEPTH_CHUNK]
+    for start in range(0, rgbs.shape[0], chunk):
+        x = rgbs[start : start + chunk]
         if hw != model.input_hw:
             x = resize_linear_batch(x, model.input_hw)
-        (depth,) = run_graphed(_depth, model, x, key, "depth")
+        (depth,) = run_graphed(_depth, model, x, "depth")
         if hw != model.input_hw:
             depth = resize_linear_batch(depth, hw)
         out.append(meters_to_mm(depth))
@@ -318,19 +308,17 @@ def build_banks(
 
     Identity-frame BEV renders, one per pano per surface. In warp mode the
     two sources are the extended packed rgb888 warp banks of the ceiling and
-    the floor (double the target extent); in direct mode the raw depth and
-    rgb banks themselves.
+    the floor (double the target extent), each rendered with its surface's
+    identity render from one cloud; in direct mode the raw depth and rgb
+    banks themselves.
     """
+    if use_warp_renders:
+        bank_ceil, ext_ceil = render_identity_banks(depths, rgbs, CEILING_Z_RANGE, render_cfg, 2 * render_cfg.img_px)
+        bank_floor, ext_floor = render_identity_banks(depths, rgbs, FLOOR_Z_RANGE, render_cfg, 2 * render_cfg.img_px)
+        return ext_ceil, ext_floor, bank_ceil, bank_floor
     bank_ceil = render_identity_batched(depths, rgbs, CEILING_Z_RANGE, render_cfg)
     bank_floor = render_identity_batched(depths, rgbs, FLOOR_Z_RANGE, render_cfg)
-    if not use_warp_renders:
-        return depths, rgbs, bank_ceil, bank_floor
-    from salve_tpu_torch.ops.warp import pack_rgb888, render_identity_bank_extended
-
-    bank_px = 2 * render_cfg.img_px
-    ext_ceil = pack_rgb888(render_identity_bank_extended(depths, rgbs, CEILING_Z_RANGE, render_cfg, bank_px))
-    ext_floor = pack_rgb888(render_identity_bank_extended(depths, rgbs, FLOOR_Z_RANGE, render_cfg, bank_px))
-    return ext_ceil, ext_floor, bank_ceil, bank_floor
+    return depths, rgbs, bank_ceil, bank_floor
 
 
 def score_floor_hypotheses(
@@ -388,9 +376,9 @@ def score_floor_hypotheses(
     with profiler.annotate("floor", id=floor_id, panos=n_panos):
         profiler.count("hypotheses", len(hypotheses))
         with profiler.annotate("place"):
-            model, key = place(model, dev)
+            model = place(model, dev)
             if depth_model is not None:
-                depth_model, depth_key = place(depth_model, dev)
+                depth_model = place(depth_model, dev)
 
         with profiler.annotate("upload"):
             # uint16 mm -> float32 is exact; float32 banks index on every device.
@@ -403,7 +391,7 @@ def score_floor_hypotheses(
         if depths is None:
             with profiler.annotate("depth", panos=n_panos):
                 profiler.count("depth/panos", n_panos)
-                depths_d = depth_mm_bank(depth_model, rgbs_d, depth_key)
+                depths_d = depth_mm_bank(depth_model, rgbs_d, DEPTH_CHUNK)
         with profiler.annotate("banks"):
             depths_d, rgbs_d, bank_ceil, bank_floor = build_banks(depths_d, rgbs_d, render_cfg, use_warp_renders)
 
@@ -433,7 +421,7 @@ def score_floor_hypotheses(
 
                 y_hat, prob = score_batch(
                     model, cfg, render_cfg, use_warp_renders, depths_d, rgbs_d,
-                    bank_ceil, bank_floor, i1_idx, i2_idx, rotations, translations, key=key,
+                    bank_ceil, bank_floor, i1_idx, i2_idx, rotations, translations,
                 )
                 if mesh is not None:
                     y_hat, prob = all_gather_rows(mesh, y_hat), all_gather_rows(mesh, prob)

@@ -1,7 +1,9 @@
 """BEV texture-map renders of panos in their own or a partner's frame.
 
 Port of salve_tpu/rendering/bev_pair.py: `render_identity_batched`,
-`render_transformed_batched`, the pair batch of the corpus renderer,
+`render_transformed_batched`, the banks of the warp path
+(`render_identity_banks`, one cloud a surface for the identity render and
+the warp source), the pair batch of the corpus renderer,
 `render_bev_pairs_batch_device`, and its host-array forms `render_bev_pair`
 and `render_bev_pairs_batch`; the render config; and the host-side IO
 helpers, which read images with the port's own JPEG and PNG readers
@@ -22,6 +24,7 @@ from salve_tpu_torch.native import jpeg, png
 from salve_tpu_torch.ops import backproject as bp
 from salve_tpu_torch.ops import bev as bev_ops
 from salve_tpu_torch.ops.numerics import fma_f32_exact
+from salve_tpu_torch.ops.warp import pack_rgb888
 
 # HoHoNet's pano center faces -x, ZInD's +y: a -90 deg rotation fixes it
 # (bev_rendering_utils.py:443). HoHoNet metric scale vs ZInD world-normalized
@@ -80,6 +83,20 @@ def render_identity_batched(
     """Render (B, H, W) panos in their own frames -> (B, h, w, 3) uint8."""
     xyz, c, v = surface_clouds(depths, rgbs, z_range, cfg)
     return bev_ops.render_bev_images_batched(xyz, c, v, cfg.img_px, cfg.meters_per_px, cfg.is_semantics)
+
+
+def render_identity_banks(
+    depths: torch.Tensor, rgbs: torch.Tensor, z_range: Tuple[float, float], cfg: BEVRenderConfig, bank_px: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One surface's banks of the warp path from one backprojection: the
+    (B, img_px+1, img_px+1, 3) uint8 identity render and the (B, bank_px+1,
+    bank_px+1) int32 packed rgb888 warp source (salve_tpu's
+    `render_identity_batched` and `ops/warp.py:render_identity_bank_extended`):
+    the same points, splatted on both grids."""
+    xyz, c, v = surface_clouds(depths, rgbs, z_range, cfg)
+    identity = bev_ops.render_bev_images_batched(xyz, c, v, cfg.img_px, cfg.meters_per_px, cfg.is_semantics)
+    bank = bev_ops.render_bev_images_batched(xyz, c, v, bank_px, cfg.meters_per_px, cfg.is_semantics)
+    return identity, pack_rgb888(bank)
 
 
 def render_transformed_batched(

@@ -204,10 +204,8 @@ def _render_texture_pairs_batched(
             # One full render per pano per surface: the identity render (img2
             # of every pair touching this pano) and the 2x-extent warp source
             # (packed rgb888), fetched to the host once a floor.
-            warp_banks[surface_type] = warp_ops.pack_rgb888(
-                warp_ops.render_identity_bank_extended(depths_d, rgbs_d, z_range, render_cfg, bank_px)).cpu().numpy()
-            ident_banks[surface_type] = bev_pair.render_identity_batched(
-                depths_d, rgbs_d, z_range, render_cfg).cpu().numpy()
+            ident, bank = bev_pair.render_identity_banks(depths_d, rgbs_d, z_range, render_cfg, bank_px)
+            ident_banks[surface_type], warp_banks[surface_type] = ident.cpu().numpy(), bank.cpu().numpy()
         profiler.record_stage("render/warp_bank_stage", time.time() - t0)
 
         # Encode each identity render once per (surface, pano): every pair

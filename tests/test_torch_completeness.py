@@ -40,6 +40,9 @@ RENAMED = {
     ("ops/pallas_fill.py", "fill_and_mask_batched"): ("ops/fill.py", "fill_and_mask", "B2: csrc/fill.cu, any batch"),
     ("ops/pallas_fill.py", "fill_and_mask_any_batch"): ("ops/fill.py", "fill_and_mask", "B2: csrc/fill.cu, any batch"),
     ("ops/pallas_fill.py", "fill_and_mask"): ("ops/fill.py", "fill_and_mask", "B2 at B = 1"),
+    ("ops/warp.py", "render_identity_bank_extended"): (
+        "rendering/bev_pair.py", "render_identity_banks",
+        "the warp source is rendered with its surface's identity render, from the same cloud"),
     ("ops/pallas_warp.py", "warp_bank_sim2_shear_pallas_v2"): ("ops/warp.py", "shear_warp_cuda", "B3: csrc/warp.cu"),
     ("ops/pallas_warp.py", "warp_bank_sim2_shear_pallas"): ("ops/warp.py", "shear_warp_cuda", "B3' computes B3's function"),
     ("parallel/mesh.py", "batch_sharding"): ("parallel/mesh.py", "shard_batch", "a rank takes its rows; no sharding object"),

@@ -1,9 +1,9 @@
 """The scorer's verifier as a CUDA graph (pipeline/fused_inference.py:
-`run_verifier`): eager on the CPU, keyed by the batch's shape and the
-parameters' storage, and on the card replayed with the answers of the eager
-verifier on the same batches; and the scorer's placement of its models
-(`place`): moved and put in eval where they are not, used as they are where
-they are, with the same answers either way.
+`run_graphed`): eager on the CPU, keyed by the batch's shape and the
+parameters' storage as `place` found it, and on the card replayed with the
+answers of the eager verifier on the same batches; and the scorer's
+placement of its models (`place`): moved and put in eval where they are
+not, used as they are where they are, with the same answers either way.
 
 The CPU tests run everywhere. The tests marked `card` skip without a CUDA
 card; on the card, with no JAX installed:
@@ -24,14 +24,7 @@ from salve_tpu_torch.geometry.sim2 import Sim2
 from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet
 from salve_tpu_torch.models.hohonet import seeded_hohonet
 from salve_tpu_torch.pipeline import fused_inference
-from salve_tpu_torch.pipeline.fused_inference import (
-    batch_key,
-    parameter_key,
-    place,
-    run_verifier,
-    score_floor_hypotheses,
-    graph_key,
-)
+from salve_tpu_torch.pipeline.fused_inference import _verify, _walk, place, run_graphed, score_floor_hypotheses
 from salve_tpu_torch.rendering.bev_pair import BEVRenderConfig
 from salve_tpu_torch.training.config import TrainingConfig
 from salve_tpu_torch.utils import profiler
@@ -84,8 +77,18 @@ def counted(fn, names=COUNTERS):
 def parent_place(model, dev):
     """The placement the scorer made before `place`: `.to` and `.eval` on
     every floor."""
-    model = model.to(dev).eval()
-    return model, graph_key(model)
+    return model.to(dev).eval()
+
+
+def verify(model, batch):
+    """The verifier through `run_graphed`, as `score_batch` runs it."""
+    return run_graphed(_verify, model, batch, "verifier")
+
+
+def entry(model):
+    """The storage the model's `_GRAPHS` entry holds, None without one."""
+    held = fused_inference._GRAPHS.get(model)
+    return None if held is None else held[0]
 
 
 def counting_to_and_train(monkeypatch):
@@ -128,33 +131,37 @@ def test_a_cpu_floor_is_scored_eagerly_once_a_batch(tmp_path):
 
 
 def test_the_key_follows_the_batch_shape_and_the_parameters_storage_not_their_values():
+    # The storage `place` records: the data pointer of each parameter and
+    # buffer. (The batch's part of the key, its shape, dtype and device, is
+    # read only on the card: test_graphs_are_keyed_by_the_inputs_shape_and_dtype_not_its_values.)
     model = make_model().eval()
-    key = parameter_key(model)
+    evaluating, devices, key = _walk(model)
+    assert evaluating and devices == {torch.device("cpu")}
     assert len(key) == len(list(model.parameters())) + len(list(model.buffers()))
     with torch.no_grad():
         model.fc.weight.mul_(2)
         model.resnet.bn1.running_mean.add_(1)
-    assert parameter_key(model) == key
+    assert _walk(model)[2] == key
     model.fc.weight = torch.nn.Parameter(model.fc.weight.detach().clone())
-    replaced = parameter_key(model)
+    replaced = _walk(model)[2]
     assert replaced != key and sum(a != b for a, b in zip(key, replaced)) == 1
     model.load_state_dict({n: t.clone() for n, t in model.state_dict().items()}, assign=True)
-    assert all(a != b for a, b in zip(replaced, parameter_key(model)))
-
-    batch = torch.zeros(BATCH, 4, 8, 8, 3)
-    assert batch_key(batch) == batch_key(torch.ones_like(batch))
-    assert batch_key(batch) != batch_key(torch.zeros(BATCH + 1, 4, 8, 8, 3))
-    assert batch_key(batch) != batch_key(batch.double())
-    # Off the card, or with a module in training mode, the verifier runs eagerly.
-    assert graph_key(model) == ()
-    assert graph_key(model.train()) == ()
+    assert all(a != b for a, b in zip(replaced, _walk(model)[2]))
+    # Off the card, or with a module in training mode, the model gets no
+    # entry and the verifier runs eagerly.
+    assert not _walk(model.train())[0]
+    for mode in (model.eval, model.train):
+        mode()
+        assert place(model, torch.device("cpu")) is model and entry(model) is None
+        with torch.no_grad():
+            _, added = counted(lambda: verify(model, torch.rand(2, 4, 56, 56, 3)))
+        assert added == {"graph_captures": 0, "graph_replays": 0, "eager": 1}
 
 
 def test_a_cpu_floor_scores_the_same_before_and_after_the_key_is_computed():
     model = make_model()
     before = score(model, 2 * BATCH + 1, "cpu")
-    parameter_key(model)
-    assert graph_key(model) == ()
+    assert place(model, torch.device("cpu")) is model and entry(model) is None
     assert score(model, 2 * BATCH + 1, "cpu") == before
 
 
@@ -185,21 +192,22 @@ def test_place_moves_and_switches_a_model_found_out_of_place(why, dev):
     model = make_model().eval()
     if why == "one_module_training":
         model.resnet.layer1[1].bn2.train()
-    (placed, key), added = counted(lambda: place(model, dev), MODELS)
-    assert added == {"resident": 0, "placed": 1} and placed is model and key == ()
+    placed, added = counted(lambda: place(model, dev), MODELS)
+    assert added == {"resident": 0, "placed": 1} and placed is model and entry(model) is None
     assert not any(m.training for m in model.modules())
     assert {t.device for t in model.state_dict().values()} == {dev}
     _, added = counted(lambda: place(model, dev), MODELS)
     assert added == {"resident": 1, "placed": 0}
 
 
-def test_a_cpu_batch_runs_the_verifier_eagerly_whatever_the_key():
+def test_a_cpu_batch_runs_the_verifier_eagerly_whatever_the_key(monkeypatch):
     model = make_model().eval()
     batch = torch.rand(2, 4, 56, 56, 3)
-    key = (1, 2, 3)  # a key as the card gives one: the batch itself keeps the verifier eager
+    # An entry as `place` makes one on the card: the batch itself keeps the verifier eager.
+    monkeypatch.setitem(fused_inference._GRAPHS, model, (_walk(model)[2], {}))
     with torch.no_grad():
-        (y_hat, prob), added = counted(lambda: run_verifier(model, batch, key))
-        y_ref, p_ref = fused_inference._verify(model, batch)
+        (y_hat, prob), added = counted(lambda: verify(model, batch))
+        y_ref, p_ref = _verify(model, batch)
     assert added == {"graph_captures": 0, "graph_replays": 0, "eager": 1}
     assert torch.equal(y_hat, y_ref) and torch.equal(prob, p_ref)
 
@@ -221,20 +229,20 @@ def card():
 def test_replays_equal_the_eager_verifier_on_the_same_batches(card, monkeypatch, n_batches):
     seen = []
 
-    def recording(model, batch, key):
-        out = run_verifier(model, batch, key)
-        seen.append((batch.clone(), key, out))
+    def recording(body, model, batch, name):
+        out = run_graphed(body, model, batch, name)
+        seen.append((batch.clone(), entry(model), out))
         return out
 
-    monkeypatch.setattr(fused_inference, "run_verifier", recording)
+    monkeypatch.setattr(fused_inference, "run_graphed", recording)
     model = make_model()
     results, added = counted(lambda: score(model, n_batches * BATCH - 1, card))
     assert added == {"graph_captures": 1, "graph_replays": n_batches, "eager": 0}
     assert len(seen) == n_batches and len(results) == n_batches * BATCH - 1
     with torch.no_grad():
         for batch, key, (y_hat, prob) in seen:
-            assert key == graph_key(model) != ()
-            y_ref, p_ref = fused_inference._verify(model, batch)
+            assert key == _walk(model)[2]
+            y_ref, p_ref = _verify(model, batch)
             assert torch.equal(y_hat, y_ref)
             assert float((log_odds(y_hat, prob) - log_odds(y_ref, p_ref)).abs().max()) <= 0.01
 
@@ -278,9 +286,9 @@ def test_a_model_on_the_current_card_is_resident_whatever_the_card_is_called(car
     index = torch.cuda.current_device()
     model = make_model().to(torch.device("cuda", index)).eval()
     dev = torch.device(name.replace("<current>", str(index)))
-    (placed, key), added = counted(lambda: place(model, dev), MODELS)
+    placed, added = counted(lambda: place(model, dev), MODELS)
     assert added == {"resident": 1, "placed": 0}
-    assert placed is model and key == graph_key(model) != ()
+    assert placed is model and entry(model) == _walk(model)[2]
 
 
 def _card_batches(card, n):
@@ -291,17 +299,17 @@ def _card_batches(card, n):
 @pytest.mark.card
 @torch.no_grad()
 def test_a_replaced_parameter_captures_anew_and_the_answer_follows_it(card):
-    model = make_model().to(card).eval()
+    model = place(make_model(), card)
     (batch,) = _card_batches(card, 1)
-    key = graph_key(model)
-    (_, p_old), added = counted(lambda: run_verifier(model, batch, key))
+    key = entry(model)
+    (_, p_old), added = counted(lambda: verify(model, batch))
     assert added["graph_captures"] == 1
     model.fc.weight = torch.nn.Parameter(-model.fc.weight.detach())
-    new_key = graph_key(model)
-    assert new_key != key
-    (y_hat, prob), added = counted(lambda: run_verifier(model, batch, new_key))
+    place(model, card)
+    assert entry(model) == _walk(model)[2] != key
+    (y_hat, prob), added = counted(lambda: verify(model, batch))
     assert added == {"graph_captures": 1, "graph_replays": 1, "eager": 0}
-    y_ref, p_ref = fused_inference._verify(model, batch)
+    y_ref, p_ref = _verify(model, batch)
     assert torch.equal(y_hat, y_ref) and torch.equal(prob, p_ref)
     assert not torch.equal(prob, p_old)
     assert len(fused_inference._GRAPHS[model][1]) == 1  # the graph of the old storage went
@@ -310,37 +318,61 @@ def test_a_replaced_parameter_captures_anew_and_the_answer_follows_it(card):
 @pytest.mark.card
 @torch.no_grad()
 def test_a_value_changed_in_place_is_read_by_the_next_replay_without_a_capture(card):
-    model = make_model().to(card).eval()
+    model = place(make_model(), card)
     (batch,) = _card_batches(card, 1)
-    key = graph_key(model)
-    (_, p_old), _ = counted(lambda: run_verifier(model, batch, key))
+    key = entry(model)
+    (_, p_old), _ = counted(lambda: verify(model, batch))
     model.fc.weight.mul_(2)
-    assert graph_key(model) == key
-    (y_hat, prob), added = counted(lambda: run_verifier(model, batch, key))
+    place(model, card)
+    assert entry(model) == key and len(fused_inference._GRAPHS[model][1]) == 1
+    (y_hat, prob), added = counted(lambda: verify(model, batch))
     assert added == {"graph_captures": 0, "graph_replays": 1, "eager": 0}
-    y_ref, p_ref = fused_inference._verify(model, batch)
+    y_ref, p_ref = _verify(model, batch)
     assert torch.equal(y_hat, y_ref) and torch.equal(prob, p_ref)
     assert not torch.equal(prob, p_old)
-    # With grad on, or in training mode, the same model runs eagerly.
+    # With grad on, or in training mode, the same model runs eagerly, its
+    # entry kept.
     with torch.enable_grad():
-        _, added = counted(lambda: run_verifier(model, batch, key))
+        _, added = counted(lambda: verify(model, batch))
     assert added == {"graph_captures": 0, "graph_replays": 0, "eager": 1}
-    assert graph_key(model.train()) == ()
+    model.train()
+    _, added = counted(lambda: verify(model, batch))
+    assert added == {"graph_captures": 0, "graph_replays": 0, "eager": 1}
+    assert entry(model) == key
 
 
 @pytest.mark.card
 @torch.no_grad()
 def test_the_answers_of_one_batch_survive_the_next_replay(card):
-    model = make_model().to(card).eval()
+    model = place(make_model(), card)
     a, b = _card_batches(card, 2)
-    key = graph_key(model)
-    y_a, p_a = run_verifier(model, a, key)
+    (y_a, p_a), added = counted(lambda: verify(model, a))
+    assert added == {"graph_captures": 1, "graph_replays": 1, "eager": 0}
     kept = y_a.clone(), p_a.clone()
-    run_verifier(model, b, key)
+    verify(model, b)
     torch.cuda.synchronize()
     assert torch.equal(y_a, kept[0]) and torch.equal(p_a, kept[1])
-    y_ref, p_ref = fused_inference._verify(model, a)
+    y_ref, p_ref = _verify(model, a)
     assert torch.equal(y_a, y_ref) and torch.equal(p_a, p_ref)
+
+
+@pytest.mark.card
+@torch.no_grad()
+def test_graphs_are_keyed_by_the_inputs_shape_and_dtype_not_its_values(card):
+    model = place(torch.nn.Linear(8, 8), card)
+
+    def body(m, x):
+        return (m(x.float()),)
+
+    x = torch.rand(BATCH, 8, device=card)
+    others = [torch.rand_like(x), torch.rand(BATCH + 1, 8, device=card), x.double()]
+    _, added = counted(lambda: run_graphed(body, model, x, "verifier"))
+    assert added == {"graph_captures": 1, "graph_replays": 1, "eager": 0}
+    for other, captures in zip(others, (0, 1, 1)):
+        (got,), added = counted(lambda: run_graphed(body, model, other, "verifier"))
+        assert added == {"graph_captures": captures, "graph_replays": 1, "eager": 0}
+        torch.testing.assert_close(got, model(other.float()))
+    assert len(fused_inference._GRAPHS[model][1]) == 3
 
 
 @pytest.mark.card
