@@ -506,6 +506,7 @@ def run(dev) -> dict:
     from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet
     from salve_tpu_torch.ops import bev, fill, kernels, splat, warp
     from salve_tpu_torch.ops.backproject import CEILING_Z_RANGE, FLOOR_Z_RANGE
+    from salve_tpu_torch.pipeline import fused_inference
     from salve_tpu_torch.pipeline.fused_inference import score_floor_hypotheses
     from salve_tpu_torch.rendering.bev_pair import BEVRenderConfig, render_identity_banks, surface_clouds
     from salve_tpu_torch.training.config import TrainingConfig
@@ -634,6 +635,9 @@ def run(dev) -> dict:
 
     runs, scored = {}, {}
     for mode, warp_on, hs in (("warp", True, hyps), ("direct", False, hyps[:N_DIRECT_HYPS])):
+        # The measured run captures its banks' graph, so that it launches B1
+        # and B2 itself rather than replay what the warm-up captured.
+        fused_inference._BANK_GRAPHS.clear()
         device_mod.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -663,8 +667,10 @@ def run(dev) -> dict:
     if runs["warp"]["launches"]["warp"] != n_batches:
         raise AssertionError(f"warp mode launched B3 {runs['warp']['launches']['warp']} times "
                              f"for {n_batches} batches: not once a batch for both surfaces")
-    # B1 is one launch a render: 4 banks a floor, plus 2 a batch in direct mode.
-    for mode, want in (("warp", 4), ("direct", 2 + 2 * -(-N_DIRECT_HYPS // batch))):
+    # B1 is one launch a render: 4 banks a floor in warp mode and 2 in direct
+    # mode, each launched twice by the floor that captures the banks' graph
+    # (an eager run, then the capture), plus 2 a batch in direct mode.
+    for mode, want in (("warp", 2 * 4), ("direct", 2 * 2 + 2 * -(-N_DIRECT_HYPS // batch))):
         if runs[mode]["launches"]["splat"] != want:
             raise AssertionError(f"{mode} mode launched B1 {runs[mode]['launches']['splat']} times, not {want}")
     check_small_input(dev)
@@ -3557,6 +3563,8 @@ def chain_phase(dev, root: Path, verifier_ckpt: Path, hohonet_ckpt: Path, e2e_di
     from salve_tpu_torch.cli.stitch_floor_plan import stitch_building_layouts
     from salve_tpu_torch.dataset import seeded_stitching
     from salve_tpu_torch.native import png
+    from salve_tpu_torch.pipeline import fused_inference
+    from salve_tpu_torch.utils import profiler
 
     t_phase = time.perf_counter()
     card = card_line()
@@ -3694,11 +3702,21 @@ def chain_phase(dev, root: Path, verifier_ckpt: Path, hohonet_ckpt: Path, e2e_di
             row = out["arms"][arm] = {"building": bid, "floors": counts, "stage_d": configs[arm]}
             # Phase 3's rule in warp mode: B1 and B2 once a bank (identity and
             # extended, ceiling and floor: 4 a floor), B3 once a batch of 32.
-            predicted = {"splat": 4 * len(counts), "fill": 4 * len(counts),
-                         "warp": sum(-(-c // 32) for c in counts.values())}
+            # A floor's banks replay one CUDA graph a pano count (up to 8
+            # panos; larger floors run them eagerly): the floor that captures
+            # it launches B1 and B2 twice a bank (its eager run and the
+            # capture), a replaying floor none.
+            fused_inference._BANK_GRAPHS.clear()
             device_mod.reset_launch_counts()
+            banks0 = {k: profiler.counter(f"banks/{k}") for k in ("graph_captures", "graph_replays", "eager")}
             timed("card", f"scoring_{arm}", lambda: test_fused.main(fused_argv(arm, hyp, work / f"preds_{arm}_card",
                                                                                 "cuda")))
+            banks = {k: profiler.counter(f"banks/{k}") - n for k, n in banks0.items()}
+            if banks["graph_replays"] + banks["eager"] != len(counts) or banks["graph_captures"] > banks["graph_replays"]:
+                raise AssertionError(f"phase 15: ({arm}) {len(counts)} floors built their banks as {banks}")
+            bank_launches = 8 * banks["graph_captures"] + 4 * banks["eager"]
+            predicted = {"splat": bank_launches, "fill": bank_launches,
+                         "warp": sum(-(-c // 32) for c in counts.values())}
             out["launches"][arm], out["predicted"][arm] = device_mod.launch_counts(), predicted
             log(f"phase 15: (3{arm}) test_fused ({'ResNet-18, 128 / 112' if flags else 'ResNet-152, 234 / 224'}, "
                 f"bf16, batch 32, warp renders) over building {bid}'s {sum(counts.values())} hypotheses in "

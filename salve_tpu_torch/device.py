@@ -26,7 +26,9 @@ Launch counts: every CUDA kernel wrapper calls `count_launch` each time it
 launches its kernel, and nowhere else, so a run can show that the main path
 went through the kernels. The counts are the `launches/<kernel>` entries of
 the port's counters (utils/profiler.py), so a traced run also finds them on
-the span each launch was made in.
+the span each launch was made in. A launch captured into a CUDA graph counts
+once, at its capture; the graph's replays run it again and count
+`<graph>/graph_replays` instead (pipeline/fused_inference.py).
 """
 
 from __future__ import annotations

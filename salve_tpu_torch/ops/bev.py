@@ -76,7 +76,7 @@ def convex_hull_mask(occupied: torch.Tensor, n_directions: int = 64) -> torch.Te
     occ = occupied.reshape(-1, h, w)
     xs = torch.arange(w, dtype=torch.float32, device=dev)
     ys = torch.arange(h, dtype=torch.float32, device=dev)
-    big = torch.tensor(1e9, dtype=torch.float32, device=dev)
+    big = 1e9  # a Python scalar: no copy to the card, which would wait for its stream
     xmin = torch.where(occ, xs[None, None, :], big).amin(dim=2)  # (B, H)
     xmax = torch.where(occ, xs[None, None, :], -big).amax(dim=2)
     row_has = occ.any(dim=2)

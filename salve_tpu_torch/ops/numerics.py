@@ -5,8 +5,25 @@ See also `ops/libm.py` for float32 sin, cos and atan2.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+
+def constant(values, device: torch.device) -> torch.Tensor:
+    """`values` (a scalar or a sequence) as a float32 tensor on `device`,
+    made once a (value, shape, device) and shared: callers must not write
+    into it. Copying a host value to the card waits for the card's stream,
+    so a constant made anew at every call stalls the host there, and no
+    CUDA graph can capture the copy."""
+    a = np.asarray(values, dtype=np.float32)
+    return _constant(a.tobytes(), a.shape, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(data: bytes, shape: tuple, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(data, dtype=np.float32).reshape(shape).copy()).to(device)
 
 
 def div_const(x: torch.Tensor, c) -> torch.Tensor:
@@ -16,11 +33,11 @@ def div_const(x: torch.Tensor, c) -> torch.Tensor:
     with the constant's float32 reciprocal, which rounds differently from
     IEEE division in ~30% of elements and can move a later round(). The
     port computes the same product on every device (a CUDA divide by a
-    Python scalar does this too; a CPU divide does not). `c` may be a
-    scalar or a sequence broadcast against the last axis.
+    Python scalar does this too; a CPU divide does not), with the
+    reciprocal a `constant` of x's device. `c` may be a scalar or a
+    sequence broadcast against the last axis.
     """
-    recip = np.float32(1.0) / np.asarray(c, dtype=np.float32)
-    return x * torch.as_tensor(recip, dtype=torch.float32, device=x.device)
+    return x * constant(np.float32(1.0) / np.asarray(c, dtype=np.float32), x.device)
 
 
 def fma_f32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:

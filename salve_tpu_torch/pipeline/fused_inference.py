@@ -11,7 +11,10 @@ Kernels on this path: B1 (splat) and B2 (fill + mask) for the identity and
 warp banks (in warp mode both of a surface from one backprojection,
 rendering/bev_pair.py:render_identity_banks), and in warp mode B3 (shear
 warp), one launch a batch for the ceiling and the floor; B1 and B2 per
-hypothesis in direct mode.
+hypothesis in direct mode. On the card a floor's banks are one CUDA graph
+a pano count (`build_banks`, floors of up to 8 panos), captured on the
+first floor of the count and replayed on every later one, in place of
+several hundred small launches.
 
 On a mesh of N ranks (parallel/mesh.py; salve_tpu's shard_map scorer,
 `make_fused_score_fn_sharded`) every rank renders the floor's banks itself,
@@ -59,12 +62,14 @@ upload, RGB alone where the depth is computed, and each batch's tensors),
 `verifier`, one of `verifier/graph_replays` (a batch the graph scored, the
 batch that captured it among them) or `verifier/eager` a batch, and
 `verifier/graph_captures`; in `depth`, the same three `depth/` counters a
-forward; in `place`, one of `models/resident` (found placed) or
-`models/placed` (moved or switched to eval) a model.
+forward; in `banks`, the same three `banks/` counters a floor; in `place`,
+one of `models/resident` (found placed) or `models/placed` (moved or
+switched to eval) a model.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import weakref
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -155,11 +160,11 @@ def _verify(model: torch.nn.Module, batch: torch.Tensor) -> Tuple[torch.Tensor, 
 
 
 class _Graph(NamedTuple):
-    """A captured body (`_verify`, `_depth`): its static input and outputs.
-    Holds no reference to the model."""
+    """A captured body (`_verify`, `_depth`, `_banks`): its static inputs
+    and outputs. Holds no reference to a model."""
 
     graph: "torch.cuda.CUDAGraph"
-    inp: torch.Tensor
+    inp: Tuple[torch.Tensor, ...]
     out: Tuple[torch.Tensor, ...]
 
 
@@ -226,33 +231,45 @@ def run_graphed(body, model: torch.nn.Module, x: torch.Tensor, name: str) -> Tup
     if held is None or model.training or x.device.type != "cuda" or torch.is_grad_enabled():
         profiler.count(f"{name}/eager")
         return body(model, x)
-    graphs, shape = held[1], (name, tuple(x.shape), x.dtype, x.device)
-    g = graphs.get(shape)
+    return _replay(held[1], (name, tuple(x.shape), x.dtype, x.device), functools.partial(body, model), (x,), name)
+
+
+def _replay(graphs: Dict[tuple, _Graph], key: tuple, body, xs: Tuple[torch.Tensor, ...], name: str,
+            pool=None) -> Tuple[torch.Tensor, ...]:
+    """`body(*xs)` replayed from `graphs[key]`, captured there first (into
+    `pool`, a private one where None) where there is none. Counts
+    `<name>/graph_replays` (the capturing call among them) and
+    `<name>/graph_captures`; the hand-written kernels count their launches
+    in the eager run and the capture alone (device.py). The outputs are
+    clones: no later replay writes them."""
+    g = graphs.get(key)
     if g is None:
-        g = graphs[shape] = _capture(body, model, x)
+        g = graphs[key] = _capture(body, xs, pool)
         profiler.count(f"{name}/graph_captures")
     else:
-        g.inp.copy_(x)
+        for static, x in zip(g.inp, xs):
+            static.copy_(x)
     g.graph.replay()
     profiler.count(f"{name}/graph_replays")
     return tuple(t.clone() for t in g.out)
 
 
-def _capture(body, model: torch.nn.Module, x: torch.Tensor) -> _Graph:
-    """The graph of `body` on a static copy of `x`, after one eager run on a
+def _capture(body, xs: Tuple[torch.Tensor, ...], pool=None) -> _Graph:
+    """The graph of `body` on static copies of `xs`, after one eager run on a
     side stream that makes cuDNN's choices outside the capture. Autocast's
     cache of cast weights is off (the verifier's own bf16 block inherits
     it), so that no cast made in the capture outlives it."""
-    static = x.clone()
-    side = torch.cuda.Stream(x.device)
-    side.wait_stream(torch.cuda.current_stream(x.device))
+    static = tuple(x.clone() for x in xs)
+    dev = static[0].device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
     with torch.autocast("cuda", enabled=False, cache_enabled=False):
         with torch.cuda.stream(side):
-            body(model, static)
-        torch.cuda.current_stream(x.device).wait_stream(side)
+            body(*static)
+        torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = body(model, static)
+        with torch.cuda.graph(graph, pool=pool):
+            out = body(*static)
     return _Graph(graph, static, out)
 
 
@@ -300,6 +317,37 @@ def depth_mm_bank(model: torch.nn.Module, rgbs: torch.Tensor, chunk: int = DEPTH
     return torch.cat(out).contiguous()
 
 
+# device -> (the one memory pool of its banks' graphs, {(the banks' shapes and
+# dtypes, the render config, the mode): the graph of `_banks`}), a graph a
+# pano count kept for the process. The graphs replay one at a time on one
+# stream, and each replay's outputs are cloned before the next, so one
+# graph's scratch may lie where another's lay; static inputs lie outside the
+# pool.
+_BANK_GRAPHS: Dict[torch.device, Tuple[tuple, Dict[tuple, _Graph]]] = {}
+
+# The most panos a floor whose banks run as a graph may hold. The host takes
+# about 11-13 ms to launch a floor's banks eagerly and the card about 0.93 ms
+# a pano to run them, so past 8 panos the card's own work hides most of the
+# launching and a graph saves little a floor; each pano count it captures
+# costs 0.1-0.8 s once, about 18 MB a pano of static inputs and outputs, and
+# its scratch in the pool, for the process. So at most 8 graphs a render
+# config and mode, and 0.64 GB of static tensors, stay on a card.
+GRAPHED_MAX_PANOS = 8
+
+
+def _banks(depths: torch.Tensor, rgbs: torch.Tensor, render_cfg: BEVRenderConfig,
+           use_warp_renders: bool) -> Tuple[torch.Tensor, ...]:
+    """The banks `build_banks` renders: (source 1, source 2, identity
+    ceiling, identity floor) in warp mode, the two identity banks in direct
+    mode."""
+    if use_warp_renders:
+        bank_ceil, ext_ceil = render_identity_banks(depths, rgbs, CEILING_Z_RANGE, render_cfg, 2 * render_cfg.img_px)
+        bank_floor, ext_floor = render_identity_banks(depths, rgbs, FLOOR_Z_RANGE, render_cfg, 2 * render_cfg.img_px)
+        return ext_ceil, ext_floor, bank_ceil, bank_floor
+    return (render_identity_batched(depths, rgbs, CEILING_Z_RANGE, render_cfg),
+            render_identity_batched(depths, rgbs, FLOOR_Z_RANGE, render_cfg))
+
+
 @torch.no_grad()
 def build_banks(
     depths: torch.Tensor, rgbs: torch.Tensor, render_cfg: BEVRenderConfig, use_warp_renders: bool
@@ -311,14 +359,26 @@ def build_banks(
     the floor (double the target extent), each rendered with its surface's
     identity render from one cloud; in direct mode the raw depth and rgb
     banks themselves.
+
+    On the card the renders run as one CUDA graph a key of the banks'
+    shapes, dtypes and device, the render config and the mode: captured on
+    the first floor of a key, replayed on every later one (one copy in, one
+    launch, the banks cloned out), all in one memory pool a card, for
+    floors of up to `GRAPHED_MAX_PANOS` panos. Larger floors and the CPU
+    render eagerly. Counts `banks/graph_replays` (the capturing floor among
+    them) and `banks/graph_captures`, or `banks/eager`.
     """
-    if use_warp_renders:
-        bank_ceil, ext_ceil = render_identity_banks(depths, rgbs, CEILING_Z_RANGE, render_cfg, 2 * render_cfg.img_px)
-        bank_floor, ext_floor = render_identity_banks(depths, rgbs, FLOOR_Z_RANGE, render_cfg, 2 * render_cfg.img_px)
-        return ext_ceil, ext_floor, bank_ceil, bank_floor
-    bank_ceil = render_identity_batched(depths, rgbs, CEILING_Z_RANGE, render_cfg)
-    bank_floor = render_identity_batched(depths, rgbs, FLOOR_Z_RANGE, render_cfg)
-    return depths, rgbs, bank_ceil, bank_floor
+    body = functools.partial(_banks, render_cfg=render_cfg, use_warp_renders=use_warp_renders)
+    if depths.device.type == "cuda" and depths.shape[0] <= GRAPHED_MAX_PANOS:
+        held = _BANK_GRAPHS.get(depths.device)
+        if held is None:
+            held = _BANK_GRAPHS[depths.device] = (torch.cuda.graph_pool_handle(), {})
+        key = (tuple(depths.shape), depths.dtype, tuple(rgbs.shape), rgbs.dtype, render_cfg, use_warp_renders)
+        banks = _replay(held[1], key, body, (depths, rgbs), "banks", held[0])
+    else:
+        profiler.count("banks/eager")
+        banks = body(depths, rgbs)
+    return banks if use_warp_renders else (depths, rgbs, *banks)
 
 
 def score_floor_hypotheses(

@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from salve_tpu_torch.ops.numerics import div_const
+from salve_tpu_torch.ops.numerics import constant, div_const
 
 # ImageNet mean/std in [0, 255] scale (salve/utils/normalization_utils.py:13).
 IMAGENET_MEAN = (0.485 * 255, 0.456 * 255, 0.406 * 255)
@@ -83,8 +83,7 @@ def resize_batch(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 def normalize_batch(imgs: torch.Tensor) -> torch.Tensor:
     """ImageNet normalization of [0, 255] inputs."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=imgs.device)
-    return div_const(imgs - mean, IMAGENET_STD)
+    return div_const(imgs - constant(IMAGENET_MEAN, imgs.device), IMAGENET_STD)
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
