@@ -23,6 +23,14 @@ panos computed on the card inside the scorer (pipeline/fused_inference.py),
 with no PNG written or read; every rank of a mesh computes it. A floor
 whose maps are all cached is scored from them. Without it, a missing map
 is made through the depth cache's registered producer.
+
+`--modalities ceiling_rgb_texture floor_rgb_texture layout` scores a
+layout verifier (six images): each floor's room layouts and W/D/Os come
+from the per-floor pose graphs of MHNet's predictions under
+`--mhnet_predictions_data_root`, which the layout modality's file-contract
+renderer reads (rendering/dataset_renderer.py:_render_layout_pairs), and a
+hypothesis whose pano has no layout there is skipped, as that renderer
+skips it.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ import numpy as np
 from salve_tpu_torch.cli.args import existing_path
 
 logger = logging.getLogger(__name__)
+
+RGB_MODALITIES = ("ceiling_rgb_texture", "floor_rgb_texture")
 
 
 def _parse_hyp_fpath(fpath: str) -> Tuple[int, int, str, str]:
@@ -77,13 +87,16 @@ def score_building_fused(
     device=None,
     mesh=None,
     depth_model=None,
+    mhnet_predictions_data_root=None,
 ) -> int:
     """Score every hypothesis of one building; write batch_{i}.json files.
 
     With a mesh every rank scores its rows of each batch and rank 0 writes
     the files (rank 0 fills a missing depth cache first). With a
     `depth_model` (a HoHoNetDepth) a floor that lacks a cached depth map
-    has its depth computed inside the scorer instead (module docstring).
+    has its depth computed inside the scorer instead (module docstring). A
+    layout verifier (`cfg.modalities` holds `layout`) reads each floor's
+    layouts from the MHNet predictions under `mhnet_predictions_data_root`.
     Returns the number of batch files written.
     """
     from salve_tpu_torch.common.alignment_hypothesis import AlignmentHypothesis
@@ -101,11 +114,23 @@ def score_building_fused(
 
     img_fpaths = glob.glob(f"{raw_dataset_dir}/{building_id}/panos/*.jpg")
     img_fpaths_dict = {int(Path(fp).stem.split("_")[-1]): fp for fp in img_fpaths}
+    floor_pose_graphs = None
+    if "layout" in cfg.modalities:
+        from salve_tpu_torch.dataset.hnet_prediction_loader import load_inferred_floor_pose_graphs
+
+        if mhnet_predictions_data_root is None:
+            raise ValueError("A layout verifier reads its layouts from MHNet predictions: give their root.")
+        floor_pose_graphs = load_inferred_floor_pose_graphs(
+            building_id=building_id, raw_dataset_dir=raw_dataset_dir,
+            predictions_data_root=mhnet_predictions_data_root) or {}
 
     n_written = 0
     floor_dirs = sorted(glob.glob(f"{hypotheses_save_root}/{building_id}/floor*"))
     for floor_dir in floor_dirs:
         floor_id = Path(floor_dir).name
+        layout_panos = None
+        if floor_pose_graphs is not None:
+            layout_panos = floor_pose_graphs[floor_id].nodes if floor_id in floor_pose_graphs else {}
 
         # pair_idx enumerates the sorted hypothesis files per label dir, as
         # the file-contract renderer does.
@@ -117,6 +142,8 @@ def score_building_fused(
             for pair_idx, pair_fpath in enumerate(pair_fpaths):
                 i1, i2, uuid, configuration = _parse_hyp_fpath(pair_fpath)
                 if i1 not in img_fpaths_dict or i2 not in img_fpaths_dict:
+                    continue
+                if layout_panos is not None and (i1 not in layout_panos or i2 not in layout_panos):
                     continue
                 obj, i1_wdo_idx, i2_wdo_idx = uuid.split("_")
                 hyps.append(
@@ -164,13 +191,16 @@ def score_building_fused(
         rgbs = np.stack(
             [bev_pair.load_pano_rgb(img_fpaths_dict[pid]) for pid in pano_ids]
         ).astype(np.float32)
+        layouts = None
+        if layout_panos is not None:
+            layouts = [(layout_panos[pid].room_vertices_local_2d, layout_panos[pid].all_wdos) for pid in pano_ids]
 
         t0 = time.time()
         results = score_floor_hypotheses(
             model, cfg, depths, rgbs, id2row, hyps,
             batch_size=batch_size, render_cfg=render_cfg,
             use_warp_renders=use_warp_renders, device=dev, mesh=mesh,
-            depth_model=None if depths is not None else depth_model,
+            depth_model=None if depths is not None else depth_model, layouts=layouts,
         )
         elapsed = max(time.time() - t0, 1e-9)
         logger.info(
@@ -244,6 +274,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "inside the scorer, with no PNG written.")
     p.add_argument("--hohonet_input_hw", type=str, default="512,1024",
                    help="Input resolution the --hohonet_ckpt was built for; ep60 is the production 512,1024.")
+    p.add_argument("--modalities", nargs="+", default=list(RGB_MODALITIES),
+                   choices=["ceiling_rgb_texture", "floor_rgb_texture", "layout"],
+                   help="The verifier's modalities: the ceiling and floor RGB textures (default), or those and the "
+                        "layout (a six-image checkpoint, with --mhnet_predictions_data_root).")
+    p.add_argument("--mhnet_predictions_data_root", type=str, default=None,
+                   help="Root of the MHNet predictions (horizon_net/<building>/*.json) whose layouts and W/D/Os a "
+                        "layout verifier scores, as the layout renderer reads them.")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu.")
     return p
 
@@ -260,7 +297,7 @@ def run_test_fused(
     hypotheses_save_root, raw_dataset_dir, depth_save_root, ckpt_fpath,
     serialization_save_dir, building_id, num_layers, resize_px, crop_px,
     batch_size, mesh_devices, use_warp_renders, append_pair_difference, device,
-    hohonet_ckpt, hohonet_input_hw,
+    hohonet_ckpt, hohonet_input_hw, modalities=RGB_MODALITIES, mhnet_predictions_data_root=None,
 ) -> None:
     options = dict(locals())
     logging.basicConfig(level=logging.INFO)
@@ -286,7 +323,7 @@ def run_test_fused(
 
     cfg = TrainingConfig(
         num_layers=num_layers,
-        modalities=("ceiling_rgb_texture", "floor_rgb_texture"),
+        modalities=tuple(modalities),
         resize_h=resize_px, resize_w=resize_px,
         train_h=crop_px, train_w=crop_px,
         batch_size=batch_size,
@@ -312,6 +349,7 @@ def run_test_fused(
             model, cfg, serialization_save_dir,
             batch_size=batch_size, start_batch_idx=total,
             use_warp_renders=use_warp_renders, device=dev, mesh=mesh, depth_model=depth_model,
+            mhnet_predictions_data_root=mhnet_predictions_data_root,
         )
     logger.info("wrote %d batch files to %s", total, serialization_save_dir)
 

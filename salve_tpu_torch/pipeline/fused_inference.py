@@ -41,6 +41,16 @@ attributes of the model are not keyed: a replay does not call `forward`,
 nor any hook. The CPU runs the verifier eagerly, as does a model `place`
 has not seen on the card or one switched to training mode since.
 
+A layout verifier (modalities ceiling RGB, floor RGB and layout: six
+images) also takes the floor's room layouts, one (room vertices, W/D/Os) a
+bank row, as the layout modality's file-contract renderer reads them
+(rendering/dataset_renderer.py:_render_layout_pairs). Each floor rasterizes
+pano 2's layout bank once (rendering/layout.py, on the card); each batch
+moves pano 1's layout of every row into pano 2's frame on the host, in
+float64 as `layout_pair_inputs` does, and draws the rows in one call, so
+that the verifier sees the file-contract renderer's rasters byte for byte
+(a nearest-neighbour warp of anti-aliased lines would be another image).
+
 A floor comes with its depth bank (u16 mm, as the depth cache holds it) or
 with RGB alone and a HoHoNet depth model (models/hohonet.py): then the
 floor's depth is computed on the card between the upload and the banks
@@ -51,12 +61,17 @@ and nothing of it is kept after the call.
 Spans (utils/profiler.py; recorded only under a profiler): `floor` for the
 call (its id the running count of floors scored) with `place` (the
 models' placement), `upload`, `depth` (only where the floor
-came without depth), `banks` and one `batch` a batch inside it; in a batch
-`prepare` (the padded chunk and its index and pose tensors),
-`score_batch`'s `warp`, `preprocess` and `verifier`, `fetch` (where the
-host waits for the card) and `collect`.
+came without depth), `banks`, `layout` (a layout verifier's floor: pano
+2's layout bank) and one `batch` a batch inside it; in a batch `prepare`
+(the padded chunk and its index and pose tensors), `layout` (a layout
+verifier's: pano 1's rasters of the batch's rows), `score_batch`'s `warp`,
+`preprocess` and `verifier`, `fetch` (where the host waits for the card)
+and `collect`.
 Counters: `floors`, `hypotheses`, `panos`, `h2d_bytes` (the banks'
-upload, RGB alone where the depth is computed, and each batch's tensors),
+upload, RGB alone where the depth is computed, each batch's tensors and
+the layouts' vertices, segments and colours),
+`layout/rasters`, `layout/vertices` and `layout/wdos` (rasters drawn, and
+the real room vertices and W/D/Os in them),
 `depth/panos` (panos whose depth the call computed), `rows` and
 `padded_rows` (a batch's rows, of them padding), `d2h_bytes`; in
 `verifier`, one of `verifier/graph_replays` (a batch the graph scored, the
@@ -72,7 +87,7 @@ from __future__ import annotations
 import functools
 import itertools
 import weakref
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +98,7 @@ from salve_tpu_torch.models.hohonet import resize_linear_batch
 from salve_tpu_torch.ops.backproject import CEILING_Z_RANGE, FLOOR_Z_RANGE
 from salve_tpu_torch.ops.warp import warp_banks_auto
 from salve_tpu_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
+from salve_tpu_torch.rendering import layout as layout_render
 from salve_tpu_torch.rendering.bev_pair import (
     BEVRenderConfig,
     HOHO_S_ZIND_SCALE_FACTOR,
@@ -120,11 +136,17 @@ def score_batch(
     i2_idx: torch.Tensor,
     rotations: torch.Tensor,
     translations: torch.Tensor,
+    layout1: Optional[torch.Tensor] = None,
+    bank_layout: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused render -> preprocess -> verify batch (JAX `_make_score_body`).
 
     In warp mode `depths`/`rgbs` hold the extended packed rgb888 warp banks
-    of the ceiling and the floor instead of the raw pano banks. The verifier
+    of the ceiling and the floor instead of the raw pano banks. A layout
+    verifier also takes the rows' pano 1 layout rasters (`layout1`) and the
+    floor's layout bank, and sees its six images in training's order
+    (dataset/bev_pairs.py): ceiling 1, ceiling 2, floor 1, floor 2, layout
+    1, layout 2. The verifier
     replays its graph where `place` put `model` on the card and it is still in
     eval mode; a caller who replaces, moves or reloads its parameters after
     that calls `place` again before the next batch.
@@ -141,10 +163,12 @@ def score_batch(
             ceil1 = render_transformed_batched(d1, c1, rotations, translations, CEILING_Z_RANGE, render_cfg)
             floor1 = render_transformed_batched(d1, c1, rotations, translations, FLOOR_Z_RANGE, render_cfg)
         # Pano 2 is rendered in its own frame: it comes from the identity bank.
-        ceil2, floor2 = bank_ceil[i2_idx], bank_floor[i2_idx]
+        images = [ceil1, bank_ceil[i2_idx], floor1, bank_floor[i2_idx]]
+        if layout1 is not None:
+            images += [layout1, bank_layout[i2_idx]]
 
     with profiler.annotate("preprocess"):
-        batch = torch.stack([ceil1, ceil2, floor1, floor2], dim=1)  # (B, 4, h, w, 3) u8
+        batch = torch.stack(images, dim=1)  # (B, 4 or 6, h, w, 3) u8
         batch = transforms.resize_batch(batch, cfg.resize_h, cfg.resize_w)
         batch = transforms.preprocess_eval(batch, cfg.train_h, cfg.train_w)
     with profiler.annotate("verifier"):
@@ -152,8 +176,8 @@ def score_batch(
 
 
 def _verify(model: torch.nn.Module, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y_hat, prob of y_hat) of a preprocessed (B, 4, h, w, 3) batch."""
-    logits = model([batch[:, i].permute(0, 3, 1, 2) for i in range(4)])
+    """(y_hat, prob of y_hat) of a preprocessed (B, model.n_images, h, w, 3) batch."""
+    logits = model([batch[:, i].permute(0, 3, 1, 2) for i in range(model.n_images)])
     probs = torch.softmax(logits, dim=1)
     y_hat = torch.argmax(logits, dim=1)
     return y_hat, probs[torch.arange(probs.shape[0], device=probs.device), y_hat]
@@ -381,6 +405,75 @@ def build_banks(
     return banks if use_warp_renders else (depths, rgbs, *banks)
 
 
+RGB_MODALITIES = frozenset({"ceiling_rgb_texture", "floor_rgb_texture"})
+LAYOUT_MODALITIES = RGB_MODALITIES | {"layout"}
+
+
+class FloorLayouts(NamedTuple):
+    """A floor's layouts as the scorer draws them: per bank row the room
+    vertices followed by each W/D/O's two endpoints, float64 in the pano's
+    own frame, so that one transform a row moves them all; and the padded
+    W/D/O colours, in paint order."""
+
+    points: List[np.ndarray]  # per row (n_verts + 2 n_wdos, 2) float64
+    n_verts: np.ndarray  # (P,) int64
+    n_wdos: np.ndarray  # (P,) int64
+    colors: np.ndarray  # (P, max W/D/Os, 3) float32
+
+    @classmethod
+    def of(cls, layouts: Sequence[Tuple[np.ndarray, list]]) -> "FloorLayouts":
+        """From one (room_vertices_local_2d, wdos) a bank row, as
+        rendering/layout.py:rasterize_layout_batch takes them."""
+        n_verts = np.array([len(v) for v, _ in layouts], dtype=np.int64)
+        n_wdos = np.array([len(w) for _, w in layouts], dtype=np.int64)
+        colors = np.zeros((len(layouts), max(int(n_wdos.max()), 1), 3), dtype=np.float32)
+        points = []
+        for r, (verts, wdos) in enumerate(layouts):
+            points.append(np.concatenate([np.asarray(verts, dtype=np.float64).reshape(-1, 2)]
+                                         + [w.vertices_local_2d for w in wdos]))
+            for k, w in enumerate(wdos):
+                colors[r, k] = layout_render.WDO_COLORS[w.type]
+        return cls(points, n_verts, n_wdos, colors)
+
+    def padded(self, rows: Sequence[int], moves: Optional[Sequence] = None) -> Tuple[np.ndarray, ...]:
+        """`layout_rasters`'s host arrays of the bank rows `rows`, each moved
+        by its Sim(2) of `moves` where given (pano 1 into pano 2's frame:
+        `Sim2.transform_from` in float64, as rendering/layout.py:
+        layout_pair_inputs moves the room and each W/D/O), then cast to
+        float32 as its `_pad_layout` casts them. Padded to the floor's
+        largest layout: the rasters do not depend on the padding."""
+        rows = np.asarray(rows, dtype=np.int64)
+        n_v, n_w = self.n_verts[rows], self.n_wdos[rows]
+        verts = np.zeros((len(rows), max(int(self.n_verts.max()), 1), 2), dtype=np.float32)
+        segs = np.zeros((len(rows), self.colors.shape[1], 2, 2), dtype=np.float32)
+        for k, r in enumerate(rows):
+            pts = self.points[r] if moves is None else moves[k].transform_from(self.points[r])
+            verts[k, : n_v[k]] = pts[: n_v[k]]
+            segs[k, : n_w[k]] = pts[n_v[k]:].reshape(-1, 2, 2)
+        return verts, n_v, segs, self.colors[rows], n_w
+
+
+def layout_rasters(verts: np.ndarray, n_verts: np.ndarray, segs: np.ndarray, colors: np.ndarray,
+                   n_wdos: np.ndarray, render_cfg: BEVRenderConfig, dev: torch.device) -> torch.Tensor:
+    """(N, img_px + 1, img_px + 1, 3) u8 layout rasters on `dev` of N padded
+    host layouts (`FloorLayouts.padded`): the vertices, segments and colours
+    go up in one copy, the counts stay on the host, and all N are drawn in
+    one `rendering/layout.py:rasterize_layout_batch_device` call at the
+    render config's size and scale. Counts `layout/rasters`,
+    `layout/vertices`, `layout/wdos` and `h2d_bytes`."""
+    n, v, k = verts.shape[0], verts.shape[1], segs.shape[1]
+    packed = torch.as_tensor(np.concatenate([verts.reshape(n, -1), segs.reshape(n, -1), colors.reshape(n, -1)],
+                                            axis=1), device=dev)
+    profiler.count("h2d_bytes", packed.nbytes)
+    profiler.count("layout/rasters", n)
+    profiler.count("layout/vertices", int(n_verts.sum()))
+    profiler.count("layout/wdos", int(n_wdos.sum()))
+    verts_d, segs_d, colors_d = packed.split([2 * v, 4 * k, 3 * k], dim=1)
+    return layout_render.rasterize_layout_batch_device(
+        verts_d.unflatten(1, (v, 2)), torch.from_numpy(n_verts), segs_d.unflatten(1, (k, 2, 2)),
+        colors_d.unflatten(1, (k, 3)), torch.from_numpy(n_wdos), render_cfg.img_px, render_cfg.meters_per_px)
+
+
 def score_floor_hypotheses(
     model: torch.nn.Module,
     cfg: TrainingConfig,
@@ -394,13 +487,14 @@ def score_floor_hypotheses(
     device: DeviceLike = None,
     mesh: Optional[Mesh] = None,
     depth_model: Optional[torch.nn.Module] = None,
+    layouts: Optional[Sequence[Tuple[np.ndarray, list]]] = None,
 ) -> List[ScoredHypothesis]:
     """Score every (i1, i2, AlignmentHypothesis) of a floor.
 
     Args:
-        model: the early-fusion verifier (ceiling+floor RGB modalities); it
-            is moved to `device` and put in eval mode (`place`: a model
-            already there is used as it is).
+        model: the early-fusion verifier (ceiling+floor RGB modalities, with
+            or without the layout); it is moved to `device` and put in eval
+            mode (`place`: a model already there is used as it is).
         depths: (P, 512, 1024) depth bank in mm, or None with a `depth_model`;
             rgbs: (P, 512, 1024, 3) in [0, 1].
         pano_id_to_bank_row: pano ID -> bank row.
@@ -419,12 +513,21 @@ def score_floor_hypotheses(
             floor's depth from `rgbs` on `device`, where `depths` is None;
             it is moved there and put in eval mode. On a mesh every rank
             computes it.
+        layouts: a layout verifier's floor layouts, one (room vertices
+            (V, 2), W/D/Os) a bank row in the pano's frame, as
+            rendering/layout.py:rasterize_layout_batch takes them (the W/D/Os
+            in paint order, `PanoData.all_wdos`); required with the layout
+            modality, refused without it. On a mesh each rank draws its rows.
     """
     dev = resolve_device(device) if mesh is None else mesh.device
     if mesh is not None and batch_size % mesh.size != 0:
         raise ValueError(f"batch_size {batch_size} not divisible by mesh size {mesh.size}")
-    if set(cfg.modalities) != {"ceiling_rgb_texture", "floor_rgb_texture"}:
-        raise ValueError("Fused inference supports the ceiling+floor RGB verifier.")
+    if set(cfg.modalities) not in (RGB_MODALITIES, LAYOUT_MODALITIES):
+        raise ValueError("Fused inference supports the ceiling+floor RGB verifier, with or without the layout.")
+    if ("layout" in cfg.modalities) != (layouts is not None):
+        raise ValueError("A layout verifier takes the floor's layouts, one a bank row; an RGB verifier takes none.")
+    if layouts is not None and len(layouts) != rgbs.shape[0]:
+        raise ValueError(f"{len(layouts)} layouts for a bank of {rgbs.shape[0]} panos")
     if (depths is None) == (depth_model is None):
         raise ValueError("Give the floor's depths or a depth_model, not both or neither.")
     if not hypotheses:
@@ -454,6 +557,11 @@ def score_floor_hypotheses(
                 depths_d = depth_mm_bank(depth_model, rgbs_d, DEPTH_CHUNK)
         with profiler.annotate("banks"):
             depths_d, rgbs_d, bank_ceil, bank_floor = build_banks(depths_d, rgbs_d, render_cfg, use_warp_renders)
+        bank_layout = None
+        if layouts is not None:
+            with profiler.annotate("layout"):
+                floor_layouts = FloorLayouts.of(layouts)
+                bank_layout = layout_rasters(*floor_layouts.padded(range(n_panos)), render_cfg, dev)
 
         rows = {pano_id_to_bank_row[i] for h in hypotheses for i in h[:2]}
         if not all(0 <= r < depths_d.shape[0] for r in rows):
@@ -478,10 +586,16 @@ def score_floor_hypotheses(
                         np.stack([h[2].i2Ti1.translation for h in chunk_p]).astype(np.float32)
                     ).to(dev)
                     profiler.count("h2d_bytes", i1_idx.nbytes + i2_idx.nbytes + rotations.nbytes + translations.nbytes)
+                layout1 = None
+                if layouts is not None:
+                    with profiler.annotate("layout"):
+                        padded = floor_layouts.padded([pano_id_to_bank_row[h[0]] for h in chunk_p],
+                                                      [h[2].i2Ti1 for h in chunk_p])
+                        layout1 = layout_rasters(*padded, render_cfg, dev)
 
                 y_hat, prob = score_batch(
                     model, cfg, render_cfg, use_warp_renders, depths_d, rgbs_d,
-                    bank_ceil, bank_floor, i1_idx, i2_idx, rotations, translations,
+                    bank_ceil, bank_floor, i1_idx, i2_idx, rotations, translations, layout1, bank_layout,
                 )
                 if mesh is not None:
                     y_hat, prob = all_gather_rows(mesh, y_hat), all_gather_rows(mesh, prob)

@@ -91,6 +91,18 @@ def _hyps(hyp_cls, sim2_cls):
             for k, (th, tx, ty) in enumerate(POSES)]
 
 
+def _layouts():
+    """Two panos' layouts: a square room with a door and a window, and a
+    pentagon with none."""
+    from salve_tpu_torch.common.wdo import WDO
+
+    wdo = lambda a, b, t: WDO(Sim2.identity(), a, b, -np.nan, np.nan, t)  # noqa: E731
+    square = np.array([[-1.5, -1.0], [1.5, -1.0], [1.5, 1.2], [-1.5, 1.2]])
+    pentagon = np.array([[np.cos(a), np.sin(a)] for a in np.linspace(0, 2 * np.pi, 5, endpoint=False)]) * 1.8
+    return [(square, [wdo((-0.5, -1.0), (0.4, -1.0), "doors"), wdo((1.5, 0.0), (1.5, 0.8), "windows")]),
+            (pentagon, [])]
+
+
 def _weights(state, num_layers):
     tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     return state_dict_from_flax(tree(state.params), tree(state.batch_stats), num_layers)
@@ -148,7 +160,7 @@ def inputs(tmp_path_factory):
             "small": small, "weights_small": _weights(small_state, 18), "imgs": imgs, "labels": labels,
             "steps": [(False, aug), (True, aug)], "tail_batches": tail_batches, "tail_draws": tail_draws,
             "train_cfg": dict(run, model_save_dirpath=str(root / "port")), "train_draws": _jax_train_draws(0, 2, 2),
-            "start_ckpt": start, "eval_dir": str(root / "port_preds"),
+            "start_ckpt": start, "eval_dir": str(root / "port_preds"), "layouts": _layouts(),
         },
     }
 
@@ -160,7 +172,7 @@ def worlds(inputs):
     from torch_parallel_work import world
 
     pool = concurrent.futures.ThreadPoolExecutor(3)
-    world2 = dict(inputs["port"], parts=["score", "corpus", "train_steps", "train_and_evaluate"],
+    world2 = dict(inputs["port"], parts=["score", "score_layout", "corpus", "train_steps", "train_and_evaluate"],
                   corpus_cases=CORPUS_CASES[2])
     world3 = {"parts": ["corpus"], "corpus_cases": CORPUS_CASES[3]}
     futures = {n: pool.submit(launch, world, n, w, device="cpu", num_threads=1, timeout_s=300)
@@ -249,6 +261,23 @@ def test_scorer_matches_salve_tpu_mesh(inputs, refs, worlds, mode):
             chunk = got[s : s + BATCH]
             padded += (chunk + [chunk[-1]] * (BATCH - len(chunk)))[rank["rank"] * k : (rank["rank"] + 1) * k]
         assert [o[4:] for o in own] == [p[4:] for p in padded][: len(own)]
+
+
+def test_a_layout_verifier_on_the_mesh_draws_each_ranks_own_rows(worlds):
+    """Each rank draws pano 2's bank and its own rows of every padded batch,
+    and scores them as the one-device scorer scores those rows."""
+    ranks = _ranks(worlds, 2)
+    got = ranks[0]["score_layout"]["results"]
+    assert got == ranks[1]["score_layout"]["results"] and len(got) == len(POSES)
+    k = BATCH // 2
+    for rank in ranks:
+        own = rank["score_layout"]["own_rows"]
+        padded = []
+        for s in range(0, len(POSES), BATCH):
+            chunk = got[s : s + BATCH]
+            padded += (chunk + [chunk[-1]] * (BATCH - len(chunk)))[rank["rank"] * k : (rank["rank"] + 1) * k]
+        assert [o[4:] for o in own] == [p[4:] for p in padded]
+        assert rank["score_layout"]["rasters"] == 2 + k * -(-len(POSES) // BATCH)
 
 
 def test_scorer_refuses_a_batch_the_mesh_does_not_divide(inputs, worlds):

@@ -252,8 +252,11 @@ NEW_CLI_CASES = [
 
 
 # Flags the port's CLIs have and salve_tpu's do not, with their defaults:
-# the fused scorer computes a floor's missing depth on the card.
-PORT_ONLY_FLAGS = {"test_fused": {"hohonet_ckpt": None, "hohonet_input_hw": "512,1024"}}
+# the fused scorer computes a floor's missing depth on the card, and scores
+# a layout verifier from MHNet's layouts.
+PORT_ONLY_FLAGS = {"test_fused": {"hohonet_ckpt": None, "hohonet_input_hw": "512,1024",
+                                  "modalities": ["ceiling_rgb_texture", "floor_rgb_texture"],
+                                  "mhnet_predictions_data_root": None}}
 
 
 @pytest.mark.parametrize("cli,command,cases", NEW_CLI_CASES, ids=[c[0] for c in NEW_CLI_CASES])

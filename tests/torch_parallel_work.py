@@ -22,6 +22,7 @@ from salve_tpu_torch.training import loop as tloop
 from salve_tpu_torch.training import train as ttrain
 from salve_tpu_torch.training import transforms as tt
 from salve_tpu_torch.training.config import TrainingConfig
+from salve_tpu_torch.utils import profiler
 
 CPU = torch.device("cpu")
 
@@ -110,6 +111,27 @@ def score(inp: dict, mesh) -> dict:
     except ValueError as e:
         out["not_divisible"] = str(e)
     return out
+
+
+def score_layout(inp: dict, mesh) -> dict:
+    """A layout verifier's floor on the mesh and, at the per-rank batch, the
+    one-device scorer over this rank's rows, with the rasters this rank drew."""
+    torch.manual_seed(0)
+    modalities = ("ceiling_rgb_texture", "floor_rgb_texture", "layout")
+    model = EarlyFusionCEResnet(num_layers=18, modalities=modalities, compute_dtype="float32").eval()
+    cfg = TrainingConfig(**dict(inp["tiny"], modalities=modalities))
+    args = (model, cfg, inp["depths"], inp["rgbs"], {3: 0, 5: 1})
+    kw = dict(render_cfg=BEVRenderConfig(**inp["render"]), use_warp_renders=False, layouts=inp["layouts"])
+    before = profiler.counter("layout/rasters")
+    res = score_floor_hypotheses(*args, inp["hyps"], batch_size=inp["batch"], mesh=mesh, **kw)
+    drawn = profiler.counter("layout/rasters") - before
+    b, k = inp["batch"], inp["batch"] // mesh.size
+    mine = []
+    for s in range(0, len(inp["hyps"]), b):
+        chunk = inp["hyps"][s : s + b]
+        mine += shard_batch(mesh, chunk + [chunk[-1]] * (b - len(chunk)))
+    one = score_floor_hypotheses(*args, mine, batch_size=k, device="cpu", **kw)
+    return {"results": [tuple(r) for r in res], "own_rows": [tuple(r) for r in one], "rasters": drawn}
 
 
 def corpus(inp: dict, mesh) -> dict:
