@@ -31,15 +31,24 @@ Phases:
      B2 fill + mask (also 32x501^2,
      the direct-mode batch, an odd 3x37x53, all-empty and all-occupied
      images, and B2's quotient against IEEE division for every float
-     numerator) and B3 shear warp through the ceiling+floor pair entry (8
-     hypotheses in each rot90 branch, and bank rows outside the bank) must
-     agree exactly;
+     numerator), B3 shear warp through the ceiling+floor pair entry (8
+     hypotheses in each rot90 branch, and bank rows outside the bank) and
+     the layout raster (the layout cell's 32x501^2 batch of 537-607-vertex
+     rooms with 0-9 W/D/Os, a corpus chunk of 64, rooms past one staged
+     tile of vertices, more W/D/Os than the kernel stages, geometry off the
+     image with degenerate segments, rooms of 0-4 vertices; each call one
+     launch of the layout kernel and none other, through one upload's
+     views) must agree exactly;
   3. run `score_floor_hypotheses` at full width (ResNet-152 early-fusion
      verifier with seeded random weights, resize 234 / crop 224, bf16,
      batch 32): 2560 hypotheses in warp mode, then 1024 in direct mode, each
      with the launch counts zeroed just before and read just after (warp
-     mode must launch B3 once a batch, for both surfaces); then a
-     small-input check of the card's path against the port's plain CPU
+     mode must launch B3 once a batch, for both surfaces); then the layout
+     verifier (ceiling + floor RGB + layout, six images, seeded weights) on
+     256 hypotheses in warp mode with seeded rooms of 537-607 vertices and
+     0-9 W/D/Os, which must launch the layout kernel once a floor (pano 2's
+     bank) and once a batch (pano 1's rows) and B1-B3 as the RGB verifier
+     does; then a small-input check of the card's path against the port's plain CPU
      path, and the median ms of the warp-mode path's parts (banks, one
      score batch, the verifier alone);
   4. time each kernel (device time: a sleep kernel fills the queue ahead of
@@ -52,7 +61,8 @@ Phases:
      grid of the same size and into the shared memory of a cluster of 16
      blocks; B2 at 4x1001^2 and 32x501^2; B3 per surface in each rot90 branch,
      and with the L2 flushed before each launch (outside the timed window),
-     as the verifier leaves it between batches;
+     as the verifier leaves it between batches; the layout raster at the
+     layout cell's 32x501^2 batch beside its byte bound;
   5. Stage A on 8 procedural floors (version 11, a 4x4 grid: 12-17 panos):
      `align_floor_pairs_batched` on the card at the inferred width ratio must
      give the hypotheses, transform bytes included, of its CPU run and of
@@ -102,7 +112,8 @@ Phases:
      renders 0 pairs; the direct arm (batch 8) on 64 pairs of floor 0, card
      against CPU, one B1 and one B2 a batch and surface, its img2 files equal
      to the warp arm's; the layout modality on 8 pairs of floor 0 with
-     phase 6's seeded MHNet files, card against CPU; then pairs/s and the
+     phase 6's seeded MHNet files, card against CPU, launching the layout
+     kernel and none of B1-B3; then pairs/s and the
      whole call's ms a floor on both, the `render/*` stage timers, and one
      batch of 64 through the host warp against the torch gather warp on the
      card, fetch included.
@@ -230,7 +241,7 @@ Phases:
      `render_bev_pairs_batch` for 16 pairs of phase 3's panos, each surface,
      equal to `render_bev_pairs_batch_device`'s rows and to the CPU bit for
      bit, one B1 and one B2 a call; `rasterize_room_layout_pair` on two panos
-     of phase 6's floor 0000, card equal to CPU; the depth-map CLI's image
+     of phase 6's floor 0000, card equal to CPU, two layout launches; the depth-map CLI's image
      function (`backprojected_bev_images`) on one of phase 8's panos, card
      equal to CPU, and the CLI: without matplotlib it raises
      `MatplotlibMissing` and writes no file, with it it writes a PNG that
@@ -420,15 +431,20 @@ CHAIN_FLOOR = CORPUS_FLOORS[1]
 CHAIN_CPU_HYPS = 32
 CHAIN_PROB_BOUND = 1e-2
 
+# Phase 3's layout verifier: hypotheses in warp mode (8 batches of 32).
+N_LAYOUT_HYPS = 256
+
 REPLACES = {
     "splat": "salve_tpu/ops/pallas_splat.py:77",
     "fill": "salve_tpu/ops/pallas_fill.py:132",
     "warp": "salve_tpu/ops/pallas_warp.py:430",
+    "layout": "salve_tpu/rendering/layout.py:137 (plain XLA, no Pallas kernel)",
 }
 SOURCES = {
     "splat": "salve_tpu_torch/csrc/splat.cu",
     "fill": "salve_tpu_torch/csrc/fill.cu",
     "warp": "salve_tpu_torch/csrc/warp.cu",
+    "layout": "salve_tpu_torch/csrc/layout.cu",
 }
 
 
@@ -508,6 +524,7 @@ def run(dev) -> dict:
     from salve_tpu_torch.ops.backproject import CEILING_Z_RANGE, FLOOR_Z_RANGE
     from salve_tpu_torch.pipeline import fused_inference
     from salve_tpu_torch.pipeline.fused_inference import score_floor_hypotheses
+    from salve_tpu_torch.rendering import layout
     from salve_tpu_torch.rendering.bev_pair import BEVRenderConfig, render_identity_banks, surface_clouds
     from salve_tpu_torch.training.config import TrainingConfig
 
@@ -535,7 +552,7 @@ def run(dev) -> dict:
     depths = torch.as_tensor(depths_np.astype(np.float32), device=dev)
     rgbs = torch.as_tensor(rgbs_np, device=dev)
     xyz, c, v = surface_clouds(depths, rgbs, FLOOR_Z_RANGE, render_cfg)
-    err = {"splat": 0.0, "fill": 0.0, "warp": 0.0}
+    err = {"splat": 0.0, "fill": 0.0, "warp": 0.0, "layout": 0.0}
     timing_inputs = {}
     rng = np.random.default_rng(1)
     # The direct-mode batch: 32 hypothesis clouds of pano 1 moved into the
@@ -621,6 +638,22 @@ def run(dev) -> dict:
             raise AssertionError("B3 read a row outside the bank")
     timing_inputs["warp"] = (banks, R, t, idx, params)
 
+    # The layout kernel, one launch a call and no other kernel, against its
+    # plain version.
+    one_layout = {name: int(name == "layout") for name in device_mod.KERNELS}
+    for name, case in layout_cases(np.random.default_rng(11)).items():
+        inputs = layout_inputs(layout, case, dev)
+        device_mod.reset_launch_counts()
+        got = layout.rasterize_layout_batch_device(*inputs, img_px, render_cfg.meters_per_px)
+        launched = device_mod.launch_counts()
+        ref = layout.rasterize_layout_plain(*inputs, img_px, render_cfg.meters_per_px)
+        differ = int((got != ref).sum())
+        err["layout"] = max(err["layout"], max_abs_diff(got, ref))
+        log(f"phase 2: layout {name}: {differ} bytes differ, launches {launched}")
+        if not torch.equal(got, ref) or launched != one_layout:
+            raise AssertionError(f"the layout kernel disagrees with its plain version at {name} (launches {launched})")
+        timing_inputs.setdefault("layout", (case, inputs))
+
     # -- Phase 3: the main path ----------------------------------------------
     cfg = TrainingConfig(num_layers=152, resize_h=234, resize_w=234, train_h=224, train_w=224, batch_size=batch,
                          compute_dtype="bfloat16")
@@ -673,6 +706,14 @@ def run(dev) -> dict:
     for mode, want in (("warp", 2 * 4), ("direct", 2 * 2 + 2 * -(-N_DIRECT_HYPS // batch))):
         if runs[mode]["launches"]["splat"] != want:
             raise AssertionError(f"{mode} mode launched B1 {runs[mode]['launches']['splat']} times, not {want}")
+        if runs[mode]["launches"]["layout"]:
+            raise AssertionError(f"{mode} mode, with no layouts, launched the layout kernel")
+    runs["layout"] = layout_verifier_run(dev, n_panos, depths_np, rgbs_np, hyps[:N_LAYOUT_HYPS], batch, render_cfg)
+    lay_batches = -(-N_LAYOUT_HYPS // batch)
+    want = dict(runs["warp"]["launches"], warp=lay_batches, layout=1 + lay_batches)
+    if runs["layout"]["launches"] != want:
+        raise AssertionError(f"the layout verifier launched {runs['layout']['launches']}, not {want}: the layout "
+                             "kernel once a floor and once a batch, B1-B3 as the RGB verifier")
     check_small_input(dev)
     report["breakdown"] = time_breakdown(model, cfg, render_cfg, depths, rgbs, hyps[:batch], dev)
     log("phase 3: warp mode, median ms: " + ", ".join(
@@ -709,9 +750,10 @@ def run(dev) -> dict:
         "bound_by": "bytes",
         "extra": warp_branch_times(warp, banks, img_px, mpp, rng, n_panos, dev),
     }
+    k["layout"] = layout_row(layout, *timing_inputs["layout"], img_px, mpp)
     for name, row in k.items():
         row.update(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-                   launches=runs["warp"]["launches"][name],
+                   launches=runs["layout" if name == "layout" else "warp"]["launches"][name],
                    launches_direct=runs["direct"]["launches"][name],
                    max_abs_err=err[name])
         log(f"phase 4: {name}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, "
@@ -750,7 +792,7 @@ def run(dev) -> dict:
                                "zorder": report["e2e"]["semantics"]["zorder"]["launches"][name]}
         row["launches_mesh"] = {mode: [launches[name] for launches in report["mesh"]["b"][mode]["launches"]]
                                 for mode in MESH_SCORED}
-        row["extra"]["per_rank"] = report["mesh"]["kernels"][name]
+        row["extra"]["per_rank"] = report["mesh"]["kernels"].get(name)
         row["launches_single"] = {k: v[name] for k, v in report["single"]["launches"].items()}
         if name in report["single"]["kernels"]:
             row["extra"]["batch_1"] = report["single"]["kernels"][name]
@@ -1659,7 +1701,7 @@ def corpus_phase(dev, root: Path) -> dict:
     warp_card, rows, launches, stages = render("warp_card", dev, root / "hyp", CORPUS_FLOORS, use_warp=True,
                                                batch=dr.WARP_BATCH_SIZE)
     show("warp arm, card", rows, launches, stages)
-    expect = {"splat": 4 * len(CORPUS_FLOORS), "fill": 4 * len(CORPUS_FLOORS), "warp": 0}
+    expect = {"splat": 4 * len(CORPUS_FLOORS), "fill": 4 * len(CORPUS_FLOORS), "warp": 0, "layout": 0}
     if launches != expect:
         raise AssertionError(f"phase 8: warp arm launches {launches}, expected {expect} (an identity and an "
                              f"extended bank a surface and floor)")
@@ -1688,7 +1730,7 @@ def corpus_phase(dev, root: Path) -> dict:
     direct_card, rows, launches, stages = render("direct_card", dev, root / "hyp_direct", [bid0], use_warp=False)
     show("direct arm, card", rows, launches, stages)
     n_batches = -(-len(kept) // dr.DEFAULT_BATCH_SIZE)  # a surface's work spans both label types
-    expect = {"splat": 2 * n_batches, "fill": 2 * n_batches, "warp": 0}
+    expect = {"splat": 2 * n_batches, "fill": 2 * n_batches, "warp": 0, "layout": 0}
     if launches != expect:
         raise AssertionError(f"phase 8: direct arm launches {launches}, expected {expect} (one B1 and one B2 a "
                              f"batch of {dr.DEFAULT_BATCH_SIZE} pairs and surface)")
@@ -1713,8 +1755,8 @@ def corpus_phase(dev, root: Path) -> dict:
     subset_hypotheses(root / "hyp", root / "hyp_layout", bid0, CORPUS_LAYOUT_PAIRS)
     lay_card, rows, launches, stages = render("layout_card", dev, root / "hyp_layout", [bid0], layout=True)
     show("layout, card", rows, launches, stages)
-    if any(launches.values()):
-        raise AssertionError(f"phase 8: the layout modality launched {launches}")
+    if launches["layout"] == 0 or any(n for k, n in launches.items() if k != "layout"):
+        raise AssertionError(f"phase 8: the layout modality launched {launches}, not the layout kernel alone")
     lay_cpu, rows_cpu, _, _ = render("layout_cpu", cpu, root / "hyp_layout", [bid0], layout=True)
     show("layout, CPU", rows_cpu, {}, {})
     out["layout"] = {"card": rows, "cpu": rows_cpu, "files": same_trees("layout", lay_card, lay_cpu)}
@@ -2379,7 +2421,7 @@ def depth_phase(dev, root: Path) -> dict:
     launches_c = device_mod.launch_counts()
     n_batches = -(-len(kept) // dr.DEFAULT_BATCH_SIZE)
     files = sorted(p for p in dst.rglob("*.jpg"))
-    expect = {"splat": 2 * n_batches, "fill": 2 * n_batches, "warp": 0}
+    expect = {"splat": 2 * n_batches, "fill": 2 * n_batches, "warp": 0, "layout": 0}
     out["render"] = {"pairs": len(kept), "items": n_items, "files": len(files), "seconds": render_s,
                      "launches": launches_c}
     log(f"phase 10: render_pairs (direct arm) on {len(kept)} pairs of floor {bid} from HoHoNet's depth: "
@@ -2438,7 +2480,7 @@ def e2e_phase(dev, root: Path, depth_ckpt: Path) -> dict:
             or any(sorted(r) != E2E_REPORT_KEYS for r in rows)
             or any(r["floorplan_iou"] is None or r["percent_panos_localized"] is None for r in rows)):
         raise AssertionError(f"phase 11: the held-out floors' rows are not all finite: {rows}")
-    expect = {"splat": 4 * n_floors, "fill": 4 * n_floors, "warp": 0}
+    expect = {"splat": 4 * n_floors, "fill": 4 * n_floors, "warp": 0, "layout": 0}
     if launches != expect:
         raise AssertionError(f"phase 11: the harness launched {launches}, expected {expect} (Stage B's warp arm: an "
                              "identity and an extended render a surface and floor; no other stage launches B1-B3)")
@@ -2800,7 +2842,8 @@ def semantics_check(dev) -> dict:
         imgs[d.type] = render_identity_batched(torch.as_tensor(depths, device=d), torch.as_tensor(rgbs, device=d),
                                                FLOOR_Z_RANGE, cfg).cpu().numpy()
         launches[d.type] = device_mod.launch_counts()
-    if not np.array_equal(imgs[dev.type], imgs["cpu"]) or launches[dev.type] != {"splat": 1, "fill": 0, "warp": 0}:
+    one_b1 = {"splat": 1, "fill": 0, "warp": 0, "layout": 0}
+    if not np.array_equal(imgs[dev.type], imgs["cpu"]) or launches[dev.type] != one_b1:
         raise AssertionError(f"phase 11: semantic render: card equals CPU {np.array_equal(imgs[dev.type], imgs['cpu'])}"
                              f", launches {launches[dev.type]}")
     row = {"render_launches": launches[dev.type], "render_nonzero": float((imgs["cpu"] > 0).mean())}
@@ -2816,7 +2859,7 @@ def semantics_check(dev) -> dict:
         device_mod.reset_launch_counts()
         masks[d.type] = zorder_utils.choose_elevated_repeated_vals(x, y, zz, device=d)
         launches[d.type] = device_mod.launch_counts()
-    if not np.array_equal(masks[dev.type], masks["cpu"]) or launches[dev.type] != {"splat": 1, "fill": 0, "warp": 0}:
+    if not np.array_equal(masks[dev.type], masks["cpu"]) or launches[dev.type] != one_b1:
         raise AssertionError(f"phase 11: choose_elevated_repeated_vals: launches {launches[dev.type]}")
     row["zorder"] = {"points": int(len(x)), "winners": int(masks["cpu"].sum()), "launches": launches[dev.type]}
     pts = np.stack([x, y], axis=1).astype(np.float64)
@@ -2937,6 +2980,125 @@ def b1_edge_cases(rng, dev) -> list:
         ("one cell 3x37x53", t(one, key, np.ones_like(ok)), h, w),
         ("first and last cells 3x37x53", t(ends, key, (ends >= 0) & (ends < hw)), h, w),
     ]
+
+
+def layout_case(rng, n_verts, n_wdos, shift: float = 0.0, reach: float = 4.5, degenerate: bool = False):
+    """Padded host layouts (`rendering/layout.py:pack_layouts`'s arrays) of
+    seeded star-shaped rooms of `n_verts` vertices, moved by `shift` metres,
+    and `n_wdos` W/D/O segments a row with ends uniform in +-`reach`; with
+    `degenerate`, each row's first segment a point."""
+    import numpy as np
+
+    from salve_tpu_torch.rendering.layout import WDO_COLORS
+
+    palette = np.array(list(WDO_COLORS.values()), np.float32)
+    b = len(n_verts)
+    verts = np.zeros((b, max(max(n_verts), 1), 2), np.float32)
+    segs = np.zeros((b, max(max(n_wdos), 1), 2, 2), np.float32)
+    colors = np.zeros(segs.shape[:2] + (3,), np.float32)
+    for r, (nv, nw) in enumerate(zip(n_verts, n_wdos)):
+        ang = np.sort(rng.uniform(0, 2 * np.pi, nv))
+        rad = rng.uniform(1.0, 4.5, nv)
+        verts[r, :nv] = np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1) + rng.normal(0, 0.4, 2) + shift
+        segs[r, :nw] = rng.uniform(-reach, reach, (nw, 2, 2))
+        colors[r, :nw] = palette[rng.integers(len(palette), size=nw)]
+        if degenerate and nw:
+            segs[r, 0, 1] = segs[r, 0, 0]
+    return verts, np.array(n_verts), segs, colors, np.array(n_wdos)
+
+
+def layout_cases(rng) -> dict:
+    """The layout kernel's phase-2 inputs: the layout cell's batch (32 rooms
+    of 537-607 vertices, 0-9 W/D/Os a row), the corpus renderer's chunk of
+    64, rooms past one staged tile of vertices, more W/D/Os than the kernel
+    stages, geometry off the image with degenerate segments, and tiny rooms."""
+    cell = lambda b: (rng.integers(537, 608, b).tolist(), rng.integers(0, 10, b).tolist())  # noqa: E731
+    return {
+        "32x501^2 (the layout cell's batch)": layout_case(rng, *cell(32)),
+        "64x501^2 (a corpus chunk)": layout_case(rng, *cell(64)),
+        "rooms of 3000, 1025 and 1024 vertices": layout_case(rng, [3000, 1025, 1024], [2, 0, 5]),
+        "70 and 65 W/D/Os": layout_case(rng, [600, 9], [70, 65]),
+        "off the image, degenerate segments": layout_case(rng, [580] * 8, list(range(1, 9)), shift=2.5, reach=12.0,
+                                                          degenerate=True),
+        "rooms of 0-4 vertices": layout_case(rng, [0, 1, 2, 3, 4], [0, 1, 0, 2, 1]),
+    }
+
+
+def layout_inputs(layout, case, dev):
+    """The five raster inputs of a case as views of one upload, as the
+    scorer's `layout_rasters` makes them."""
+    import torch
+
+    packed = torch.as_tensor(layout.pack_layouts(*case), device=dev)
+    return layout.unpack_layouts(packed, case[0].shape[1], case[2].shape[1])
+
+
+def layout_verifier_run(dev, n_panos: int, depths_np, rgbs_np, hyps, batch: int, render_cfg) -> dict:
+    """Phase 3's layout verifier: the six-image ResNet-152 (seeded weights,
+    bf16) scoring `hyps` in warp mode with a seeded layout a pano, launch
+    counts zeroed just before the measured call and read just after."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch import device as device_mod
+    from salve_tpu_torch.common.wdo import WDO
+    from salve_tpu_torch.geometry.sim2 import Sim2
+    from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet
+    from salve_tpu_torch.pipeline import fused_inference
+    from salve_tpu_torch.training.config import TrainingConfig
+
+    cfg = TrainingConfig(num_layers=152, resize_h=234, resize_w=234, train_h=224, train_w=224, batch_size=batch,
+                         modalities=("ceiling_rgb_texture", "floor_rgb_texture", "layout"), compute_dtype="bfloat16")
+    torch.manual_seed(3)
+    model = EarlyFusionCEResnet(num_layers=cfg.num_layers, modalities=cfg.modalities, compute_dtype=cfg.compute_dtype)
+    rng = np.random.default_rng(3)
+    verts, n_verts, segs, _, n_wdos = layout_case(rng, rng.integers(537, 608, n_panos).tolist(),
+                                                  rng.integers(0, 10, n_panos).tolist())
+    kinds = ("doors", "windows", "openings")
+    layouts = [(verts[r, :n_verts[r]].astype(np.float64),
+                [WDO(Sim2.identity(), tuple(segs[r, k, 0]), tuple(segs[r, k, 1]), 0.0, 2.0, kinds[k % 3])
+                 for k in range(n_wdos[r])]) for r in range(n_panos)]
+    id2row = {p: p for p in range(n_panos)}
+
+    def score(hs):
+        return fused_inference.score_floor_hypotheses(model, cfg, depths_np, rgbs_np, id2row, hs, batch, render_cfg,
+                                                      use_warp_renders=True, device=dev, layouts=layouts)
+
+    score(hyps[:batch])  # warm-up: cuDNN plans, the allocator, the verifier's graph
+    fused_inference._BANK_GRAPHS.clear()  # as the RGB runs: the measured floor captures its banks' graph
+    device_mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = score(hyps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = device_mod.launch_counts()
+    if len(res) != len(hyps) or not all(r.y_hat in (0, 1) and 0.0 <= r.prob <= 1.0 for r in res):
+        raise AssertionError(f"the layout verifier's results are not one valid score a hypothesis: {res[:4]}")
+    log(f"phase 3: layout verifier scored {len(hyps)} hypotheses in {secs:.3f} s ({len(hyps) / secs:.1f} hyp/s), "
+        f"rooms of {n_verts.tolist()} vertices and {n_wdos.tolist()} W/D/Os, launches {launches}, "
+        f"y_hat=1 share {np.mean([r.y_hat for r in res]):.3f}")
+    return {"hypotheses": len(hyps), "seconds": secs, "hyp_per_s": len(hyps) / secs, "launches": launches}
+
+
+def layout_row(layout, case, inputs, img_px: int, mpp: float) -> dict:
+    """The layout kernel on one call's inputs: its time, the plain version's
+    and its bound (the u8 rasters written and the inputs read over the
+    card's bandwidth, or the crossings over its float32 rate)."""
+    b, side = len(case[1]), img_px + 1
+    n_bytes = b * side * side * 3 + 8 * int(case[1].sum()) + 28 * int(case[4].sum())
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, side * int(case[1].sum()) * 4 / FP32_OPS_PER_S
+    return {
+        "shape": f"{b}x{side}^2, {int(case[1].min())}-{int(case[1].max())} vertices, "
+                 f"{int(case[4].min())}-{int(case[4].max())} W/D/Os",
+        "ms": time_ms(lambda: layout.rasterize_layout_cuda(*inputs, img_px, mpp)),
+        "plain_ms": time_ms(lambda: layout.rasterize_layout_plain(*inputs, img_px, mpp), rounds=3, per_round=2,
+                            prefill=False),
+        "library_ms": None,
+        "bound_ms": max(by_bytes, by_ops) * 1e3,
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "extra": {},
+    }
 
 
 def splat_row(lib, splat, cell, key, ok, side: int, dsmem: float, dev) -> dict:
@@ -3716,7 +3878,7 @@ def chain_phase(dev, root: Path, verifier_ckpt: Path, hohonet_ckpt: Path, e2e_di
                 raise AssertionError(f"phase 15: ({arm}) {len(counts)} floors built their banks as {banks}")
             bank_launches = 8 * banks["graph_captures"] + 4 * banks["eager"]
             predicted = {"splat": bank_launches, "fill": bank_launches,
-                         "warp": sum(-(-c // 32) for c in counts.values())}
+                         "warp": sum(-(-c // 32) for c in counts.values()), "layout": 0}
             out["launches"][arm], out["predicted"][arm] = device_mod.launch_counts(), predicted
             log(f"phase 15: (3{arm}) test_fused ({'ResNet-18, 128 / 112' if flags else 'ResNet-152, 234 / 224'}, "
                 f"bf16, batch 32, warp renders) over building {bid}'s {sum(counts.values())} hypotheses in "
@@ -3859,7 +4021,7 @@ def single_render_phase(dev, root: Path, depths_np, rgbs_np, stage_d: dict) -> d
         return got, device_mod.launch_counts()
 
     def expect_one_each(what, counts):
-        if counts != {"splat": 1, "fill": 1, "warp": 0}:
+        if counts != {"splat": 1, "fill": 1, "warp": 0, "layout": 0}:
             raise AssertionError(f"phase 14: {what} launched {counts}, not one B1 and one B2")
 
     # (a) render_bev_image on pano 0 at 501^2, both surfaces.
@@ -3930,7 +4092,8 @@ def single_render_phase(dev, root: Path, depths_np, rgbs_np, stage_d: dict) -> d
     S = Sim2.from_theta_deg(33.0, np.array([0.4, -0.3]))
     got, counts = launched(lambda: layout.rasterize_room_layout_pair(S, gt.nodes[ids[0]], gt.nodes[ids[1]], device=dev))
     want = layout.rasterize_room_layout_pair(S, gt.nodes[ids[0]], gt.nodes[ids[1]], device=cpu)
-    if not all(np.array_equal(a, b) for a, b in zip(got, want)) or any(counts.values()):
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)) or counts != {"splat": 0, "fill": 0, "warp": 0,
+                                                                               "layout": 2}:
         raise AssertionError(f"phase 14: rasterize_room_layout_pair differs between the card and the CPU ({counts})")
     log(f"phase 14: rasterize_room_layout_pair, panos {ids[0]} and {ids[1]} of floor 0000: card equals CPU bit for "
         f"bit; launches {counts}")
@@ -3939,7 +4102,7 @@ def single_render_phase(dev, root: Path, depths_np, rgbs_np, stage_d: dict) -> d
     pano = sorted((root / "zind" / "0000" / "panos").glob("*.jpg"))[0]
     depth = root / "depth" / "0000" / f"{pano.stem}.depth.png"
     images, counts = launched(lambda: depthmap_cli.backprojected_bev_images(str(depth), str(pano), device=dev))
-    if counts != {"splat": 2, "fill": 2, "warp": 0}:
+    if counts != {"splat": 2, "fill": 2, "warp": 0, "layout": 0}:
         raise AssertionError(f"phase 14: the depth-map CLI's images launched {counts}")
     out["launches"]["depthmap_cli"] = counts
     cpu_images = depthmap_cli.backprojected_bev_images(str(depth), str(pano), device=cpu)

@@ -43,7 +43,7 @@ from salve_tpu_torch.utils import profiler
 
 DeviceLike = Union[str, torch.device, None]
 
-KERNELS = ("splat", "fill", "warp")
+KERNELS = ("splat", "fill", "warp", "layout")
 
 
 def count_launch(kernel: str) -> None:

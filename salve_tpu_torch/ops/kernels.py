@@ -9,8 +9,8 @@ lists). The hash covers every file under `csrc/` (headers included) and the
 flags, so editing any of them rebuilds on first use and an unchanged tree
 reuses its build.
 
-No `--use_fast_math`: the fill kernel's bit-exactness rests on IEEE-rounded
-adds, products and quotients.
+No `--use_fast_math`: the fill and layout kernels' bit-exactness rests on
+IEEE-rounded adds, products, quotients and square roots.
 
 Nothing here runs at import: the CPU tests import every module, and a
 build needs `nvcc` and a card.
@@ -41,6 +41,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "salve_splat_max": [_P, _P, _P, _P, _I, _I, _I, _P],
     "salve_splat_max_blocks": [_P],
@@ -49,6 +50,7 @@ _SIGNATURES = {
     "salve_fill_mask": [_P, _P, _P, _P, _I, _I, _I, _P],
     "salve_fill_div_check": [_P, _P],
     "salve_shear_warp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "salve_layout_raster": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
 }
 
 

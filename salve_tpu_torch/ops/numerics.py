@@ -37,7 +37,12 @@ def div_const(x: torch.Tensor, c) -> torch.Tensor:
     reciprocal a `constant` of x's device. `c` may be a scalar or a
     sequence broadcast against the last axis.
     """
-    return x * constant(np.float32(1.0) / np.asarray(c, dtype=np.float32), x.device)
+    return x * constant(reciprocal_f32(c), x.device)
+
+
+def reciprocal_f32(c) -> np.ndarray:
+    """The float32 reciprocal of `c` by which `div_const` multiplies."""
+    return np.float32(1.0) / np.asarray(c, dtype=np.float32)
 
 
 def fma_f32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:

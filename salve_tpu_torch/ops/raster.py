@@ -175,9 +175,14 @@ def polyline_coverage(
         dist = sqrt_f32(fma_f32_exact(dy, dy, dx * dx + zero))
         valid = (i < (num_verts - 1))[..., None, None]
         min_dist = torch.minimum(min_dist, torch.where(valid, dist, torch.full_like(dist, float("inf"))))
+    return torch.clamp(div_const(coverage_top(thickness) - min_dist, AA_RAMP), 0.0, 1.0)
+
+
+def coverage_top(thickness: float) -> float:
+    """The float32 distance at which a line of `thickness` px has coverage 0:
+    its half width, the anti-aliasing pad and half the ramp."""
     half_width = float(torch.tensor(thickness, dtype=torch.float32) / 2.0 + AA_HALF_WIDTH_PAD)
-    top = float(torch.tensor(half_width, dtype=torch.float32) + AA_RAMP / 2.0)
-    return torch.clamp(div_const(top - min_dist, AA_RAMP), 0.0, 1.0)
+    return float(torch.tensor(half_width, dtype=torch.float32) + AA_RAMP / 2.0)
 
 
 def paint_rgb(img: torch.Tensor, coverage: torch.Tensor, color: torch.Tensor) -> torch.Tensor:

@@ -456,22 +456,19 @@ class FloorLayouts(NamedTuple):
 def layout_rasters(verts: np.ndarray, n_verts: np.ndarray, segs: np.ndarray, colors: np.ndarray,
                    n_wdos: np.ndarray, render_cfg: BEVRenderConfig, dev: torch.device) -> torch.Tensor:
     """(N, img_px + 1, img_px + 1, 3) u8 layout rasters on `dev` of N padded
-    host layouts (`FloorLayouts.padded`): the vertices, segments and colours
-    go up in one copy, the counts stay on the host, and all N are drawn in
-    one `rendering/layout.py:rasterize_layout_batch_device` call at the
-    render config's size and scale. Counts `layout/rasters`,
-    `layout/vertices`, `layout/wdos` and `h2d_bytes`."""
-    n, v, k = verts.shape[0], verts.shape[1], segs.shape[1]
-    packed = torch.as_tensor(np.concatenate([verts.reshape(n, -1), segs.reshape(n, -1), colors.reshape(n, -1)],
-                                            axis=1), device=dev)
+    host layouts (`FloorLayouts.padded`): the vertices, segments, colours and
+    counts go up in one copy, and all N are drawn in one
+    `rendering/layout.py:rasterize_layout_batch_device` call at the render
+    config's size and scale (one launch of the layout kernel on the card).
+    Counts `layout/rasters`, `layout/vertices`, `layout/wdos` and
+    `h2d_bytes`."""
+    packed = torch.as_tensor(layout_render.pack_layouts(verts, n_verts, segs, colors, n_wdos), device=dev)
     profiler.count("h2d_bytes", packed.nbytes)
-    profiler.count("layout/rasters", n)
+    profiler.count("layout/rasters", verts.shape[0])
     profiler.count("layout/vertices", int(n_verts.sum()))
     profiler.count("layout/wdos", int(n_wdos.sum()))
-    verts_d, segs_d, colors_d = packed.split([2 * v, 4 * k, 3 * k], dim=1)
-    return layout_render.rasterize_layout_batch_device(
-        verts_d.unflatten(1, (v, 2)), torch.from_numpy(n_verts), segs_d.unflatten(1, (k, 2, 2)),
-        colors_d.unflatten(1, (k, 3)), torch.from_numpy(n_wdos), render_cfg.img_px, render_cfg.meters_per_px)
+    inputs = layout_render.unpack_layouts(packed, verts.shape[1], segs.shape[1])
+    return layout_render.rasterize_layout_batch_device(*inputs, render_cfg.img_px, render_cfg.meters_per_px)
 
 
 def score_floor_hypotheses(

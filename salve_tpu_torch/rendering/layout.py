@@ -10,11 +10,15 @@ equal the reference's exactly.
 `rasterize_layout_device` renders a batch natively (no vmap): layouts are
 padded to common vertex and W/D/O counts, and every render function of host
 arrays takes `device=None`, which means the CUDA card;
-`rasterize_layout_batch_device` renders on its tensors' device.
+`rasterize_layout_batch_device` renders on its tensors' device: the plain
+version (`rasterize_layout_plain`) on the CPU, the layout kernel
+(`csrc/layout.cu`, `rasterize_layout_cuda`) on the card, one launch a call,
+with the same u8 bytes.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -24,8 +28,8 @@ from salve_tpu_torch import device as device_mod
 from salve_tpu_torch.common.pano_data import PanoData
 from salve_tpu_torch.geometry.sim2 import Sim2
 from salve_tpu_torch.ops import bev as bev_ops
-from salve_tpu_torch.ops import raster
-from salve_tpu_torch.ops.numerics import div_const, fma_f32
+from salve_tpu_torch.ops import kernels, raster
+from salve_tpu_torch.ops.numerics import div_const, fma_f32, reciprocal_f32
 
 HOHO_S_ZIND_SCALE_FACTOR = 1.5
 
@@ -50,6 +54,11 @@ def get_line_width_by_resolution(resolution: float) -> int:
     """Polyline thickness in px for a rendering resolution (bevparams.py:81)."""
     scale = resolution / FULL_RES_METERS_PER_PX
     return max(round(FULL_RES_LINE_WIDTH_PX / scale), 1)
+
+
+def _half_extent_m(img_px: int, meters_per_px: float) -> float:
+    """The world offset of the image's origin, whole metres."""
+    return float(int((img_px / 2) * meters_per_px))
 
 
 def _world_to_img(p: torch.Tensor, half_m: float, meters_per_px: float) -> torch.Tensor:
@@ -82,7 +91,7 @@ def rasterize_layout_device(
     """
     img_h = img_w = img_px + 1
     dev = room_verts.device
-    half_m = float(int((img_px / 2) * meters_per_px))
+    half_m = _half_extent_m(img_px, meters_per_px)
     thickness = float(get_line_width_by_resolution(meters_per_px))
     counts = torch.as_tensor(num_wdos)
     # Padded W/D/Os paint with coverage 0, which leaves every pixel as it
@@ -118,6 +127,64 @@ def _pad_layout(
     return v, n_v, segs, colors, n_w
 
 
+def rasterize_layout_plain(
+    room_verts: torch.Tensor,
+    num_room_verts: torch.Tensor,
+    wdo_segments: torch.Tensor,
+    wdo_colors: torch.Tensor,
+    num_wdos: torch.Tensor,
+    img_px: int = bev_ops.DEFAULT_BEV_IMG_PX,
+    meters_per_px: float = bev_ops.DEFAULT_METERS_PER_PX,
+) -> torch.Tensor:
+    """Plain version of the layout kernel: `rasterize_layout_device` rounded,
+    clipped and cast to uint8 on the inputs' device
+    (salve_tpu/rendering/layout.py:137), so the fetched array is 4x smaller."""
+    imgs = rasterize_layout_device(room_verts, num_room_verts, wdo_segments, wdo_colors, num_wdos, img_px,
+                                   meters_per_px)
+    return torch.clamp(torch.round(imgs), 0, 255).to(torch.uint8)
+
+
+def rasterize_layout_cuda(
+    room_verts: torch.Tensor,
+    num_room_verts: torch.Tensor,
+    wdo_segments: torch.Tensor,
+    wdo_colors: torch.Tensor,
+    num_wdos: torch.Tensor,
+    img_px: int = bev_ops.DEFAULT_BEV_IMG_PX,
+    meters_per_px: float = bev_ops.DEFAULT_METERS_PER_PX,
+) -> torch.Tensor:
+    """Launch the layout kernel: `rasterize_layout_plain`'s (B, img_px + 1,
+    img_px + 1, 3) u8 rasters, byte for byte, in one launch.
+
+    The five inputs are `unpack_layouts`'s views of one packed upload on the
+    card, which the kernel reads as one contiguous (B, 2V + 7K + 2) float32
+    buffer. Raises on anything else.
+    """
+    inputs = (room_verts, num_room_verts, wdo_segments, wdo_colors, num_wdos)
+    packed = room_verts if room_verts._base is None else room_verts._base
+    device_mod.require_cuda_tensor("the packed layouts", packed, torch.float32)
+    b, v, k = room_verts.shape[0], room_verts.shape[1], wdo_segments.shape[1]
+    views = unpack_layouts(packed, v, k) if packed.shape == (b, 2 * v + 7 * k + 2) else ()
+    if [_view_of(t) for t in inputs] != [_view_of(t) for t in views]:
+        raise ValueError("the layout kernel takes unpack_layouts's views of one packed upload")
+    side = img_px + 1
+    out = torch.empty((b, side, side, 3), dtype=torch.uint8, device=packed.device)
+    top = raster.coverage_top(float(get_line_width_by_resolution(meters_per_px)))
+    err = kernels.load().lib.salve_layout_raster(
+        packed.data_ptr(), out.data_ptr(), b, v, k, side, _half_extent_m(img_px, meters_per_px),
+        float(reciprocal_f32(meters_per_px)), top, float(reciprocal_f32(raster.AA_RAMP)), math.ceil(top) + 1.0,
+        kernels.stream_handle(packed.device),
+    )
+    kernels.check(err, "layout")
+    device_mod.count_launch("layout")
+    return out
+
+
+def _view_of(t: torch.Tensor) -> tuple:
+    """Where and how `t` lies in memory."""
+    return t.data_ptr(), t.dtype, tuple(t.shape), t.stride()
+
+
 def rasterize_layout_batch_device(
     room_verts: torch.Tensor,
     num_room_verts: torch.Tensor,
@@ -127,24 +194,46 @@ def rasterize_layout_batch_device(
     img_px: int = bev_ops.DEFAULT_BEV_IMG_PX,
     meters_per_px: float = bev_ops.DEFAULT_METERS_PER_PX,
 ) -> torch.Tensor:
-    """`rasterize_layout_device` rounded, clipped and cast to uint8 on the
-    inputs' device (salve_tpu/rendering/layout.py:137), so the fetched
-    array is 4x smaller."""
-    imgs = rasterize_layout_device(room_verts, num_room_verts, wdo_segments, wdo_colors, num_wdos, img_px,
-                                   meters_per_px)
-    return torch.clamp(torch.round(imgs), 0, 255).to(torch.uint8)
+    """(B, img_px + 1, img_px + 1, 3) u8 layout rasters on the inputs'
+    device. A CPU tensor takes the plain version; a CUDA tensor launches the
+    layout kernel (counts on the card as well: `unpack_layouts`)."""
+    if room_verts.device.type == "cpu":
+        return rasterize_layout_plain(room_verts, num_room_verts, wdo_segments, wdo_colors, num_wdos, img_px,
+                                      meters_per_px)
+    if room_verts.device.type == "cuda":
+        return rasterize_layout_cuda(room_verts, num_room_verts, wdo_segments, wdo_colors, num_wdos, img_px,
+                                     meters_per_px)
+    raise ValueError(f"unsupported device {room_verts.device}")
+
+
+def pack_layouts(verts: np.ndarray, n_verts: np.ndarray, segs: np.ndarray, colors: np.ndarray,
+                 n_wdos: np.ndarray) -> np.ndarray:
+    """N padded layouts ((N, V, 2) vertices, (N, K, 2, 2) segments and
+    (N, K, 3) colours, float32; (N,) vertex and W/D/O counts) as the rows of
+    one (N, 2V + 7K + 2) float32 array, the counts last as int32 bits, so
+    that one copy takes all five to the card."""
+    n, v, k = verts.shape[0], verts.shape[1], segs.shape[1]
+    counts = np.stack([n_verts, n_wdos], axis=1).astype(np.int32).view(np.float32)
+    return np.concatenate([np.asarray(verts, dtype=np.float32).reshape(n, 2 * v),
+                           np.asarray(segs, dtype=np.float32).reshape(n, 4 * k),
+                           np.asarray(colors, dtype=np.float32).reshape(n, 3 * k), counts], axis=1)
+
+
+def unpack_layouts(packed: torch.Tensor, v: int, k: int) -> Tuple[torch.Tensor, ...]:
+    """`rasterize_layout_batch_device`'s five inputs as views of
+    `pack_layouts`'s rows on any device: (vertices, vertex counts, segments,
+    colours, W/D/O counts)."""
+    verts, segs, colors, counts = packed.split([2 * v, 4 * k, 3 * k, 2], dim=1)
+    counts = counts.view(torch.int32)
+    return (verts.unflatten(1, (v, 2)), counts[:, 0], segs.unflatten(1, (k, 2, 2)), colors.unflatten(1, (k, 3)),
+            counts[:, 1])
 
 
 def _stack_padded(padded, dev: torch.device) -> Tuple[torch.Tensor, ...]:
-    """`rasterize_layout_batch_device`'s five inputs from `_pad_layout` rows:
-    the coordinates and colours on `dev`, the counts on the host."""
-    return (
-        torch.as_tensor(np.stack([p[0] for p in padded]), device=dev),
-        torch.as_tensor(np.array([p[1] for p in padded], dtype=np.int64)),
-        torch.as_tensor(np.stack([p[2] for p in padded]), device=dev),
-        torch.as_tensor(np.stack([p[3] for p in padded]), device=dev),
-        torch.as_tensor(np.array([p[4] for p in padded], dtype=np.int64)),
-    )
+    """`rasterize_layout_batch_device`'s five inputs on `dev` from
+    `_pad_layout` rows, in one copy."""
+    packed = pack_layouts(*(np.stack([p[i] for p in padded]) for i in range(5)))
+    return unpack_layouts(torch.as_tensor(packed, device=dev), padded[0][0].shape[0], padded[0][2].shape[0])
 
 
 def rasterize_single_layout(

@@ -135,9 +135,11 @@ def test_every_public_name_of_salve_tpu_has_a_counterpart():
 
 def test_the_three_pallas_modules_are_cuda_kernels():
     """The Pallas modules have no Python counterpart: their functions are the
-    hand-written kernels under csrc/, reached through ops/{splat,fill,warp}.py."""
+    hand-written kernels under csrc/, reached through ops/{splat,fill,warp}.py.
+    The one other kernel, layout.cu, draws the layout rasters that salve_tpu
+    leaves to plain XLA (rendering/layout.py keeps the plain version)."""
     for rel in ("ops/pallas_splat.py", "ops/pallas_fill.py", "ops/pallas_warp.py"):
         assert not (PORT / rel).exists()
         names = {n for n, _ in _public_definitions(REF / rel)}
         assert names and all((rel, n) in RENAMED for n in names)
-    assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {"splat.cu", "fill.cu", "warp.cu"}
+    assert {p.name for p in (PORT / "csrc").glob("*.cu")} == {"splat.cu", "fill.cu", "warp.cu", "layout.cu"}

@@ -23,6 +23,7 @@ import torch
 
 from salve_tpu_torch import device as device_mod
 from salve_tpu_torch.ops import fill, kernels, splat, warp
+from salve_tpu_torch.rendering import layout as layout_render
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -521,7 +522,7 @@ def test_end_to_end_and_icp_entry_points_raise_without_a_card(no_cuda, tmp_path)
     device_mod.reset_launch_counts()
     assert zorder_utils.choose_elevated_repeated_vals(xs, xs, xs * 0.1, device="cpu").all()
     assert icp.register_point_clouds(cloud[:, :3], cloud[:, :3], device="cpu").shape == (4, 4)
-    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0}
+    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0, "layout": 0}
 
 
 def test_evaluation_entry_points_raise_without_a_card(no_cuda, tmp_path):
@@ -549,7 +550,8 @@ def test_evaluation_entry_points_raise_without_a_card(no_cuda, tmp_path):
     assert eval_floorplan.eval_oraclepose_predictedlayout(d, d, "test", str(out / "viz"), device="cpu") == []
     report = measure_algorithm_localization_accuracy("0000", "floor_01", d, "opensfm", str(out / "sfm"),
                                                      str(tmp_path / "absent.json"), device="cpu")
-    assert report.percent_panos_localized == 0 and device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0}
+    assert report.percent_panos_localized == 0
+    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0, "layout": 0}
 
 
 def test_native_readers_build_apart_from_the_kernels():
@@ -589,7 +591,7 @@ def test_cuda_wrappers_reject_cpu_tensors():
     p = warp.shear_warp_params(torch.eye(2)[None], torch.zeros((1, 2)), 9, 4, 0.5)
     with pytest.raises(ValueError, match="CUDA"):
         warp.shear_warp_cuda(bank, torch.zeros(1, dtype=torch.long), p)
-    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0}
+    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0, "layout": 0}
 
 
 def test_cuda_wrappers_refuse_a_tensor_of_another_card(monkeypatch):
@@ -606,8 +608,8 @@ def test_cuda_wrappers_refuse_a_tensor_of_another_card(monkeypatch):
         device_mod.require_cuda_tensor("cell", other, torch.int32)
     here = types.SimpleNamespace(device=torch.device("cuda", 0), dtype=torch.int32, is_contiguous=lambda: True)
     device_mod.require_cuda_tensor("cell", here, torch.int32)
-    for wrapper in ("splat.py", "fill.py", "warp.py"):
-        text = (REPO / "salve_tpu_torch/ops" / wrapper).read_text()
+    for wrapper in ("ops/splat.py", "ops/fill.py", "ops/warp.py", "rendering/layout.py"):
+        text = (REPO / "salve_tpu_torch" / wrapper).read_text()
         assert "require_cuda_tensor(" in text and "kernels.stream_handle(" in text
         assert "kernels.stream_handle()" not in text  # the stream of the tensors' card
 
@@ -619,6 +621,86 @@ def test_dispatchers_raise_on_other_devices():
     sparse = torch.zeros((1, 4, 4, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fill.fill_and_mask(sparse, sparse[..., 0].bool(), sparse[..., 0].bool())
+
+
+def _layout_inputs(device="cpu"):
+    """Two padded layouts (a square room and one with no W/D/O) as one
+    upload's views, as `rendering/layout.py:rasterize_layout_batch` hands
+    them to the raster."""
+    verts = np.zeros((2, 5, 2), np.float32)
+    verts[0, :4] = [(-1, -1), (1, -1), (1, 1), (-1, 1)]
+    verts[1] = [(0, 0), (2, 0), (2, 1), (1, 2), (0, 1)]
+    segs = np.zeros((2, 3, 2, 2), np.float32)
+    segs[0, :2] = [[(-1, -1), (1, -1)], [(1, 1), (1, 1)]]
+    colors = np.zeros((2, 3, 3), np.float32)
+    colors[0, :2] = [(255, 0, 0), (0, 0, 255)]
+    packed = layout_render.pack_layouts(verts, np.array([4, 5]), segs, colors, np.array([2, 0]))
+    return layout_render.unpack_layouts(torch.as_tensor(packed, device=device), 5, 3)
+
+
+def test_layout_dispatcher_raises_on_other_devices():
+    with pytest.raises(ValueError, match="unsupported device"):
+        layout_render.rasterize_layout_batch_device(*_layout_inputs("meta"), 40, 0.1)
+
+
+def test_layout_kernel_wrapper_rejects_cpu_tensors():
+    """The layout kernel's launcher raises on CPU input (before it loads the
+    kernels), and counts no launch."""
+    device_mod.reset_launch_counts()
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        layout_render.rasterize_layout_cuda(*_layout_inputs(), 40, 0.1)
+    assert "layout" in device_mod.KERNELS
+    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0, "layout": 0}
+
+
+def test_layout_rasters_on_the_cpu_take_the_plain_version(monkeypatch):
+    """On the CPU, `rasterize_layout_batch_device` is the plain version and
+    launches nothing; the counts ride in the upload as int32 bits, and every
+    input is a view of the one packed array."""
+    def no_kernels():
+        raise AssertionError("the CPU path loaded the kernels")
+
+    monkeypatch.setattr(kernels, "load", no_kernels)
+    inputs = _layout_inputs()
+    verts, n_verts, segs, colors, n_wdos = inputs
+    assert n_verts.tolist() == [4, 5] and n_wdos.tolist() == [2, 0] and n_verts.dtype == torch.int32
+    assert len({t.untyped_storage().data_ptr() for t in inputs}) == 1
+    assert verts.stride(0) == n_verts.stride(0) == 2 * 5 + 7 * 3 + 2 and verts[0].is_contiguous()
+    device_mod.reset_launch_counts()
+    got = layout_render.rasterize_layout_batch_device(*inputs, 40, 0.1)
+    want = layout_render.rasterize_layout_plain(verts.contiguous(), torch.tensor([4, 5]), segs.contiguous(),
+                                                colors.contiguous(), torch.tensor([2, 0]), 40, 0.1)
+    assert got.dtype == torch.uint8 and got.shape == (2, 41, 41, 3) and torch.equal(got, want)
+    assert (got[0] == 255).any() and (got[0, ..., 2] > got[0, ..., 1]).any() and (got[1] == 255).any()
+    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0, "layout": 0}
+
+
+def test_layout_kernel_wrapper_takes_the_views_of_one_upload(monkeypatch):
+    """The layout kernel reads one packed buffer, so its launcher takes
+    `unpack_layouts`'s views of one upload and refuses copies or views of
+    two uploads before it loads the kernels. This build has no CUDA tensors:
+    CPU tensors stand in, with the device check passed."""
+    class OnCard(torch.Tensor):
+        device = property(lambda self: torch.device("cuda", 0))
+
+    class Loaded(Exception):
+        pass
+
+    def load():
+        raise Loaded
+
+    real = device_mod.require_cuda_tensor
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(device_mod, "require_cuda_tensor", lambda name, t, dtype: real(name, t.as_subclass(OnCard),
+                                                                                        dtype))
+    monkeypatch.setattr(kernels, "load", load)
+    inputs = _layout_inputs()
+    with pytest.raises(Loaded):
+        layout_render.rasterize_layout_cuda(*inputs, 40, 0.1)
+    other = _layout_inputs()
+    for args in ([t.clone() for t in inputs], (*inputs[:4], other[4]), (other[0], *inputs[1:])):
+        with pytest.raises(ValueError, match="views of one packed upload"):
+            layout_render.rasterize_layout_cuda(*args, 40, 0.1)
 
 
 def test_cpu_only_build_has_no_kernels_and_chip_smoke_refuses(capsys):
@@ -636,10 +718,13 @@ def test_cpu_only_build_has_no_kernels_and_chip_smoke_refuses(capsys):
 
 def test_kernel_sources_are_hashed_and_present(tmp_path, monkeypatch):
     names = kernels.sources()
-    assert {"splat.cu", "fill.cu", "warp.cu"} <= set(names)
+    assert {"splat.cu", "fill.cu", "warp.cu", "layout.cu"} <= set(names)
     for name in names:
         text = (kernels.CSRC / name).read_text()
-        assert "Replaces salve_tpu/ops/pallas_" in text
+        # A kernel names the Pallas kernel it replaces, or says it replaces
+        # none and names the plain salve_tpu code it stands in for.
+        replaces_none = "Replaces no Pallas kernel" in text and "salve_tpu/ops/" in text
+        assert "Replaces salve_tpu/ops/pallas_" in text or replaces_none
         assert "What bounds it" in text
         assert 'extern "C"' in text
     assert "--use_fast_math" not in kernels.NVCC_FLAGS

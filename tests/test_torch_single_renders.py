@@ -222,4 +222,4 @@ def test_single_renders_take_the_card_by_default(no_cuda, tmp_path):
     device_mod.reset_launch_counts()
     tbev_pair.render_bev_pair(depths[0], rgbs[0], depths[1], rgbs[1], S, "floor",
                               tbev_pair.BEVRenderConfig(img_px=60, meters_per_px=0.1), device="cpu")
-    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0}
+    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0, "layout": 0}

@@ -188,18 +188,18 @@ def test_an_epoch_has_its_gather_steps_folds_and_syncs(tmp_path):
 
 def test_launch_counts_read_b1_to_b3_as_before(tmp_path):
     device_mod.reset_launch_counts()
-    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0}
+    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0, "layout": 0}
     device_mod.count_launch("warp")
     device_mod.count_launch("warp")
     device_mod.count_launch("splat")
-    assert device_mod.launch_counts() == {"splat": 1, "fill": 0, "warp": 2}
+    assert device_mod.launch_counts() == {"splat": 1, "fill": 0, "warp": 2, "layout": 0}
     with profiler.device_trace(str(tmp_path)):
         with profiler.annotate("banks"):
             device_mod.count_launch("fill")
     assert profiler.span_record()[0]["counts"] == {"launches/fill": 1}
-    assert device_mod.launch_counts() == {"splat": 1, "fill": 1, "warp": 2}
+    assert device_mod.launch_counts() == {"splat": 1, "fill": 1, "warp": 2, "layout": 0}
     device_mod.reset_launch_counts()
-    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0}
+    assert device_mod.launch_counts() == {"splat": 0, "fill": 0, "warp": 0, "layout": 0}
 
 
 def test_stage_timer_opens_its_span_and_keeps_its_summary(tmp_path):
