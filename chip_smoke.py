@@ -278,6 +278,15 @@ Phases:
      chain's seconds stage by stage, each arm's % localized and IoU (arm
      (b)'s depth is a seeded HoHoNet's, so its numbers mean nothing until
      the released `ep60.pth` is in the repository).
+ 16. HorizonNet in the scorer through the CLI: a seeded building (a
+     procedural floor of 1x2 rooms, random 512x1024 JPEG panos, u16 depth
+     PNGs, seeded MHNet predictions) scored by `test_fused --modalities
+     ceiling_rgb_texture floor_rgb_texture layout --horizonnet_ckpt` (a
+     seeded HorizonNet `.pth` at 512x1024, a seeded six-image ResNet-152):
+     every pano's boundary computed on the card (`horizon/panos`), as CUDA
+     graph replays with none eager, `boundary/vertices` the rooms the
+     card's boundaries make, one answer a hypothesis; the card's boundaries
+     against the CPU's within 1e-2 rows.
 
 The last three lines: the `kernels` JSON, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -433,6 +442,12 @@ CHAIN_PROB_BOUND = 1e-2
 
 # Phase 3's layout verifier: hypotheses in warp mode (8 batches of 32).
 N_LAYOUT_HYPS = 256
+# Phase 16: a seeded building's floor scored through the CLI with HorizonNet
+# computing each pano's boundary; the card's boundaries against the CPU's
+# in rows (float32 both, other sums: the benchmark's card reads 3e-4-5e-4
+# against its plain reference, TF32 0.36-0.41).
+HORIZON_SEED = 16
+HORIZON_ROWS_BOUND = 1e-2
 
 REPLACES = {
     "splat": "salve_tpu/ops/pallas_splat.py:77",
@@ -782,6 +797,7 @@ def run(dev) -> dict:
         report["single"] = single_render_phase(dev, Path(tmp), depths_np, rgbs_np, report["stage_d"])
         report["chain"] = chain_phase(dev, Path(tmp), sorted(Path(tmp).glob("training/streamed/*/train_ckpt.pt"))[-1],
                                       Path(tmp) / "hohonet" / "ep60_seeded.pth", Path(tmp) / "e2e")
+        report["horizon"] = horizon_phase(dev, Path(tmp))
     for name, row in report["kernels"].items():
         row["launches_corpus"] = {arm: report["corpus"][f"{arm}_card"]["launches"][name] for arm in ("warp", "direct")}
         row["launches_depth"] = {"hohonet": report["depth"]["hohonet"]["launches"][name],
@@ -4203,6 +4219,99 @@ def single_render_phase(dev, root: Path, depths_np, rgbs_np, stage_d: dict) -> d
     return out
 
 
+def horizon_phase(dev, root: Path) -> dict:
+    """Phase 16 (module docstring): HorizonNet computing a layout verifier's
+    rooms inside the scorer, through `test_fused --horizonnet_ckpt`."""
+    import numpy as np
+    import torch
+
+    from salve_tpu_torch.cli import test_fused
+    from salve_tpu_torch.dataset import procedural
+    from salve_tpu_torch.dataset.hnet_prediction_loader import load_hnet_predictions
+    from salve_tpu_torch.dataset.seeded_predictions import pano_image_paths, write_seeded_mhnet_predictions
+    from salve_tpu_torch.geometry.sim2 import Sim2
+    from salve_tpu_torch.models.early_fusion import EarlyFusionCEResnet
+    from salve_tpu_torch.models.horizonnet import HorizonNet, load_horizonnet
+    from salve_tpu_torch.native import jpeg, png
+    from salve_tpu_torch.pipeline import fused_inference
+    from salve_tpu_torch.rendering import bev_pair
+    from salve_tpu_torch.utils import profiler
+
+    t_phase = time.perf_counter()
+    bid = "0996"
+    building = procedural.generate_building_json(HORIZON_SEED, n_rows=1, n_cols=2)
+    raw, depth, mhnet, hyp = (root / "horizon" / d for d in ("raw", "depth", "mhnet", "hyp"))
+    (raw / bid).mkdir(parents=True)
+    (raw / bid / "zind_data.json").write_text(json.dumps(building))
+    rng = np.random.default_rng(HORIZON_SEED)
+    paths = pano_image_paths(building)
+    for rel in paths.values():
+        img = raw / bid / rel
+        img.parent.mkdir(parents=True, exist_ok=True)
+        jpeg.write_jpeg(img, rng.integers(0, 255, (512, 1024, 3)).astype(np.uint8))
+        d = depth / bid / f"{Path(rel).stem}.depth.png"
+        d.parent.mkdir(parents=True, exist_ok=True)
+        d.write_bytes(png.encode_png(rng.integers(1000, 4000, (512, 1024)).astype(np.uint16)))
+    write_seeded_mhnet_predictions(mhnet, bid, building, HORIZON_SEED)
+    ids = sorted(paths)
+    for k, (i1, i2) in enumerate((a, b) for a in ids for b in ids if a < b):
+        for label in ("gt_alignment_approx", "incorrect_alignment"):
+            (hyp / bid / "floor_01" / label).mkdir(parents=True, exist_ok=True)
+            Sim2.from_theta_deg(float(rng.uniform(-180, 180)), rng.uniform(-1, 1, 2)).save_as_json(
+                str(hyp / bid / "floor_01" / label / f"{i1}_{i2}__door_{k}_0_identity.json"))
+    modalities = ("ceiling_rgb_texture", "floor_rgb_texture", "layout")
+    torch.manual_seed(HORIZON_SEED)
+    torch.save(EarlyFusionCEResnet(num_layers=152, modalities=modalities, compute_dtype="bfloat16").state_dict(),
+               root / "horizon" / "six_images.pt")
+    ckpt = root / "horizon" / "resnet50_rnn_seeded.pth"
+    torch.save({"kwargs": {"backbone": "resnet50", "use_rnn": True}, "state_dict": HorizonNet().state_dict()}, ckpt)
+
+    names = ("horizon/panos", "horizon/graph_replays", "horizon/graph_captures", "horizon/eager", "boundary/vertices")
+    before = {n: profiler.counter(n) for n in names}
+    argv = ["--hypotheses_save_root", str(hyp), "--raw_dataset_dir", str(raw), "--depth_save_root", str(depth),
+            "--ckpt_fpath", str(root / "horizon" / "six_images.pt"), "--building_id", bid,
+            "--serialization_save_dir", str(root / "horizon" / "preds"), "--modalities", *modalities,
+            "--mhnet_predictions_data_root", str(mhnet), "--horizonnet_ckpt", str(ckpt), "--device", "cuda"]
+    t0 = time.perf_counter()
+    test_fused.main(argv)
+    cli_s = time.perf_counter() - t0
+    counts = {n: profiler.counter(n) - before[n] for n in names}
+    probs = [p for f in sorted((root / "horizon" / "preds").glob("batch_*.json"))
+             for p in json.loads(f.read_text())["y_hat_probs"]]
+    n_hyps = 2 * len(ids) * (len(ids) - 1) // 2
+    if len(probs) != n_hyps or not all(0.0 <= p <= 1.0 for p in probs):
+        raise AssertionError(f"phase 16: {len(probs)} answers for {n_hyps} hypotheses: {probs[:4]}")
+
+    # The floor's boundaries on the card (as the CLI computed them) and the CPU.
+    rgbs = torch.as_tensor(np.stack([bev_pair.load_pano_rgb(str(raw / bid / paths[i])) for i in ids]),
+                           dtype=torch.float32)
+    card_model = fused_inference.place(load_horizonnet(str(ckpt), device=dev), dev)
+    x = rgbs.to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = fused_inference.floor_boundary_bank(card_model, x)
+    torch.cuda.synchronize()
+    boundary_ms = (time.perf_counter() - t0) * 1e3
+    cpu = fused_inference.floor_boundary_bank(load_horizonnet(str(ckpt), device="cpu"), rgbs)
+    gap = float((card.cpu() - cpu).abs().max())
+    preds = load_hnet_predictions(bid, str(raw), str(mhnet))["floor_01"]
+    spans = [{t: [(w.s, w.e) for w in getattr(preds[i], t)] for t in ("doors", "windows", "openings")} for i in ids]
+    vertices = sum(len(room) for room, _ in fused_inference.boundary_layouts(card.cpu().numpy(), spans))
+    chunks = -(-len(ids) // fused_inference.HORIZON_CHUNK)
+    want = {"horizon/panos": len(ids), "horizon/graph_replays": chunks, "horizon/eager": 0,
+            "boundary/vertices": vertices}
+    if any(counts[n] != v for n, v in want.items()) or counts["horizon/graph_captures"] > chunks:
+        raise AssertionError(f"phase 16: counters {counts}, expected {want} and at most {chunks} captures")
+    if not gap <= HORIZON_ROWS_BOUND:
+        raise AssertionError(f"phase 16: the card's boundaries are {gap} rows from the CPU's")
+    log(f"phase 16: test_fused --horizonnet_ckpt on building {bid} (floor_01, {len(ids)} panos, {n_hyps} "
+        f"hypotheses): {cli_s:.2f} s, counters {counts}; boundaries {boundary_ms:.1f} ms on the card, "
+        f"{gap:.3e} rows from the CPU's (bound {HORIZON_ROWS_BOUND}), rows {float(cpu.min()):.1f}-"
+        f"{float(cpu.max()):.1f}")
+    return {"seconds": time.perf_counter() - t_phase, "cli_s": cli_s, "panos": len(ids), "hypotheses": n_hyps,
+            "counts": counts, "boundary_ms": boundary_ms, "cpu_gap_rows": gap}
+
+
 def main() -> int:
     # Deterministic cuBLAS products (the training policy) need this before
     # the process's first cuBLAS call.
@@ -4284,6 +4393,10 @@ def main() -> int:
     log(f"throughput: phase 15, the inference chain on floor {CHAIN_FLOOR} through the CLIs: "
         f"{sum(ch['seconds_card'].values()):.1f} s on the card (" + ", ".join(
             f"{k} {v:.2f}" for k, v in ch["seconds_card"].items()) + f"); the phase {ch['seconds']:.1f} s")
+    hz = report["horizon"]
+    log(f"throughput: phase 16, test_fused --horizonnet_ckpt scored {hz['hypotheses']} hypotheses of a "
+        f"{hz['panos']}-pano floor in {hz['cli_s']:.2f} s (boundaries {hz['boundary_ms']:.1f} ms on the card); "
+        f"the phase {hz['seconds']:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "l2_bound_ms", "dsmem_bound_ms", "params_ms", "launches_direct",
             "launches_corpus", "launches_depth", "launches_e2e", "launches_mesh", "launches_single",

@@ -30,7 +30,11 @@ from the per-floor pose graphs of MHNet's predictions under
 `--mhnet_predictions_data_root`, which the layout modality's file-contract
 renderer reads (rendering/dataset_renderer.py:_render_layout_pairs), and a
 hypothesis whose pano has no layout there is skipped, as that renderer
-skips it.
+skips it. With `--horizonnet_ckpt` (a HorizonNet `.pth` for 512x1024
+panos, a released `resnet50_rnn` file or one in its key layout) each pano's
+floor boundary, and so its room, is computed on the card inside the scorer
+instead (pipeline/fused_inference.py: `layout_model`), and only the W/D/O spans come from MHNet's predictions;
+every rank of a mesh computes the boundaries.
 """
 
 from __future__ import annotations
@@ -88,6 +92,7 @@ def score_building_fused(
     mesh=None,
     depth_model=None,
     mhnet_predictions_data_root=None,
+    layout_model=None,
 ) -> int:
     """Score every hypothesis of one building; write batch_{i}.json files.
 
@@ -96,8 +101,10 @@ def score_building_fused(
     `depth_model` (a HoHoNetDepth) a floor that lacks a cached depth map
     has its depth computed inside the scorer instead (module docstring). A
     layout verifier (`cfg.modalities` holds `layout`) reads each floor's
-    layouts from the MHNet predictions under `mhnet_predictions_data_root`.
-    Returns the number of batch files written.
+    layouts from the MHNet predictions under `mhnet_predictions_data_root`;
+    with a `layout_model` (a HorizonNet) only their W/D/O spans, each pano's
+    room computed from its boundary inside the scorer. Returns the number of
+    batch files written.
     """
     from salve_tpu_torch.common.alignment_hypothesis import AlignmentHypothesis
     from salve_tpu_torch.depth.cache import depth_fpath_for_pano, infer_depth_if_nonexistent
@@ -114,15 +121,21 @@ def score_building_fused(
 
     img_fpaths = glob.glob(f"{raw_dataset_dir}/{building_id}/panos/*.jpg")
     img_fpaths_dict = {int(Path(fp).stem.split("_")[-1]): fp for fp in img_fpaths}
-    floor_pose_graphs = None
+    floor_pose_graphs = floor_predictions = None
     if "layout" in cfg.modalities:
-        from salve_tpu_torch.dataset.hnet_prediction_loader import load_inferred_floor_pose_graphs
+        from salve_tpu_torch.dataset.hnet_prediction_loader import (load_hnet_predictions,
+                                                                    load_inferred_floor_pose_graphs)
 
         if mhnet_predictions_data_root is None:
             raise ValueError("A layout verifier reads its layouts from MHNet predictions: give their root.")
-        floor_pose_graphs = load_inferred_floor_pose_graphs(
-            building_id=building_id, raw_dataset_dir=raw_dataset_dir,
-            predictions_data_root=mhnet_predictions_data_root) or {}
+        if layout_model is None:
+            floor_pose_graphs = load_inferred_floor_pose_graphs(
+                building_id=building_id, raw_dataset_dir=raw_dataset_dir,
+                predictions_data_root=mhnet_predictions_data_root) or {}
+        else:
+            floor_predictions = load_hnet_predictions(
+                building_id=building_id, raw_dataset_dir=raw_dataset_dir,
+                predictions_data_root=mhnet_predictions_data_root) or {}
 
     n_written = 0
     floor_dirs = sorted(glob.glob(f"{hypotheses_save_root}/{building_id}/floor*"))
@@ -131,6 +144,8 @@ def score_building_fused(
         layout_panos = None
         if floor_pose_graphs is not None:
             layout_panos = floor_pose_graphs[floor_id].nodes if floor_id in floor_pose_graphs else {}
+        elif floor_predictions is not None:
+            layout_panos = floor_predictions.get(floor_id, {})
 
         # pair_idx enumerates the sorted hypothesis files per label dir, as
         # the file-contract renderer does.
@@ -191,8 +206,12 @@ def score_building_fused(
         rgbs = np.stack(
             [bev_pair.load_pano_rgb(img_fpaths_dict[pid]) for pid in pano_ids]
         ).astype(np.float32)
-        layouts = None
-        if layout_panos is not None:
+        layouts = wdo_spans = None
+        if floor_predictions is not None:
+            wdo_spans = [{t: [(w.s, w.e) for w in getattr(layout_panos[pid], t)] for t in ("doors", "windows",
+                                                                                          "openings")}
+                         for pid in pano_ids]
+        elif layout_panos is not None:
             layouts = [(layout_panos[pid].room_vertices_local_2d, layout_panos[pid].all_wdos) for pid in pano_ids]
 
         t0 = time.time()
@@ -201,6 +220,7 @@ def score_building_fused(
             batch_size=batch_size, render_cfg=render_cfg,
             use_warp_renders=use_warp_renders, device=dev, mesh=mesh,
             depth_model=None if depths is not None else depth_model, layouts=layouts,
+            layout_model=None if wdo_spans is None else layout_model, wdo_spans=wdo_spans,
         )
         elapsed = max(time.time() - t0, 1e-9)
         logger.info(
@@ -281,6 +301,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mhnet_predictions_data_root", type=str, default=None,
                    help="Root of the MHNet predictions (horizon_net/<building>/*.json) whose layouts and W/D/Os a "
                         "layout verifier scores, as the layout renderer reads them.")
+    p.add_argument("--horizonnet_ckpt", type=existing_path, default=None,
+                   help="HorizonNet .pth (resnet50_rnn): a layout verifier's rooms come from each pano's floor "
+                        "boundary computed on the card inside the scorer, and only the W/D/O spans from the MHNet "
+                        "predictions.")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu.")
     return p
 
@@ -298,6 +322,7 @@ def run_test_fused(
     serialization_save_dir, building_id, num_layers, resize_px, crop_px,
     batch_size, mesh_devices, use_warp_renders, append_pair_difference, device,
     hohonet_ckpt, hohonet_input_hw, modalities=RGB_MODALITIES, mhnet_predictions_data_root=None,
+    horizonnet_ckpt=None,
 ) -> None:
     options = dict(locals())
     logging.basicConfig(level=logging.INFO)
@@ -335,6 +360,13 @@ def run_test_fused(
         from salve_tpu_torch.models.hohonet import load_hohonet
 
         depth_model = load_hohonet(hohonet_ckpt, tuple(int(v) for v in hohonet_input_hw.split(",")), device=dev)
+    layout_model = None
+    if horizonnet_ckpt is not None:
+        if "layout" not in cfg.modalities:
+            raise ValueError("--horizonnet_ckpt computes a layout verifier's rooms: give --modalities with layout.")
+        from salve_tpu_torch.models.horizonnet import load_horizonnet
+
+        layout_model = load_horizonnet(horizonnet_ckpt, device=dev)
 
     Path(serialization_save_dir).mkdir(parents=True, exist_ok=True)
     if building_id is not None:
@@ -349,7 +381,7 @@ def run_test_fused(
             model, cfg, serialization_save_dir,
             batch_size=batch_size, start_batch_idx=total,
             use_warp_renders=use_warp_renders, device=dev, mesh=mesh, depth_model=depth_model,
-            mhnet_predictions_data_root=mhnet_predictions_data_root,
+            mhnet_predictions_data_root=mhnet_predictions_data_root, layout_model=layout_model,
         )
     logger.info("wrote %d batch files to %s", total, serialization_save_dir)
 

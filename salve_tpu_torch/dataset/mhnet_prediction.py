@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, List
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -24,6 +24,7 @@ from salve_tpu_torch.common.wdo import WDO
 from salve_tpu_torch.geometry.simplify import rdp
 
 RAMER_DOUGLAS_PEUCKER_EPSILON = 0.02
+WDO_TYPES = ("windows", "doors", "openings")
 
 
 @dataclass
@@ -118,44 +119,12 @@ class MHNetPanoStructurePrediction:
         The layout contour is RDP-simplified at epsilon 0.02 in room coords.
         Camera height is fixed to 1.0 (ego-normalized), matching the reference.
         """
-        camera_height_m = 1.0
-
-        u = np.arange(1024)
-        v = np.round(self.floor_boundary)
-        boundary_px = np.stack([u, v], axis=-1).astype(np.float64)
-        room_vertices = pano_projection.pixel_to_worldmetric(
-            boundary_px, image_width=img_w, camera_height_m=camera_height_m
+        room_vertices_local_2d, wdos = layout_from_floor_boundary(
+            self.floor_boundary,
+            {t: [(w.s, w.e) for w in getattr(self, t)] for t in WDO_TYPES},
+            img_w,
+            gt_pose_graph.nodes[pano_id].global_Sim2_local,
         )
-        room_vertices_local_2d = rdp(room_vertices[:, :2], epsilon=RAMER_DOUGLAS_PEUCKER_EPSILON)
-
-        wdos = {"windows": [], "doors": [], "openings": []}
-        for wdo_type, instances in (
-            ("windows", self.windows),
-            ("doors", self.doors),
-            ("openings", self.openings),
-        ):
-            for wdo in instances:
-                s_u = float(np.clip(wdo.s * img_w, 0, img_w - 1))
-                e_u = float(np.clip(wdo.e * img_w, 0, img_w - 1))
-                endpoints_px = np.array(
-                    [
-                        [s_u, self.floor_boundary[round(s_u)]],
-                        [e_u, self.floor_boundary[round(e_u)]],
-                    ]
-                )
-                endpoints_world = pano_projection.pixel_to_worldmetric(
-                    endpoints_px, image_width=img_w, camera_height_m=camera_height_m
-                )
-                wdos[wdo_type].append(
-                    WDO(
-                        global_Sim2_local=gt_pose_graph.nodes[pano_id].global_Sim2_local,
-                        pt1=(endpoints_world[0, 0], endpoints_world[0, 1]),
-                        pt2=(endpoints_world[1, 0], endpoints_world[1, 1]),
-                        bottom_z=-np.nan,
-                        top_z=np.nan,
-                        type=wdo_type,
-                    )
-                )
 
         return PanoData(
             id=pano_id,
@@ -168,6 +137,61 @@ class MHNetPanoStructurePrediction:
             openings=wdos["openings"],
             vanishing_angle_deg=vanishing_angle_deg,
         )
+
+
+def layout_from_floor_boundary(
+    floor_boundary: np.ndarray,
+    spans: Dict[str, Sequence[Tuple[float, float]]],
+    img_w: int,
+    global_Sim2_local,
+) -> Tuple[np.ndarray, Dict[str, List[WDO]]]:
+    """A pano's room and W/D/Os from its per-column floor boundary.
+
+    The boundary (one row a column of an image `img_w` wide, twice as wide
+    as high) is rounded to whole rows and backprojected onto the floor of a
+    camera at height 1.0 (ego-normalized, as the reference), and the
+    contour RDP-simplified at epsilon 0.02 in room coords. Each W/D/O span
+    (s, e) of `spans` (fractions of the width, by type: "windows", "doors",
+    "openings") has its endpoints at the unrounded boundary's rows of its
+    ends, backprojected the same way. Returns (room vertices (V, 2), the
+    W/D/Os by type). MHNet's parser (`convert_to_pano_data`) and the fused
+    scorer's HorizonNet path (pipeline/fused_inference.py) both call this.
+    """
+    camera_height_m = 1.0
+
+    u = np.arange(len(floor_boundary))
+    v = np.round(floor_boundary)
+    boundary_px = np.stack([u, v], axis=-1).astype(np.float64)
+    room_vertices = pano_projection.pixel_to_worldmetric(
+        boundary_px, image_width=img_w, camera_height_m=camera_height_m
+    )
+    room_vertices_local_2d = rdp(room_vertices[:, :2], epsilon=RAMER_DOUGLAS_PEUCKER_EPSILON)
+
+    wdos: Dict[str, List[WDO]] = {t: [] for t in WDO_TYPES}
+    for wdo_type in WDO_TYPES:
+        for s, e in spans[wdo_type]:
+            s_u = float(np.clip(s * img_w, 0, img_w - 1))
+            e_u = float(np.clip(e * img_w, 0, img_w - 1))
+            endpoints_px = np.array(
+                [
+                    [s_u, floor_boundary[round(s_u)]],
+                    [e_u, floor_boundary[round(e_u)]],
+                ]
+            )
+            endpoints_world = pano_projection.pixel_to_worldmetric(
+                endpoints_px, image_width=img_w, camera_height_m=camera_height_m
+            )
+            wdos[wdo_type].append(
+                WDO(
+                    global_Sim2_local=global_Sim2_local,
+                    pt1=(endpoints_world[0, 0], endpoints_world[0, 1]),
+                    pt2=(endpoints_world[1, 0], endpoints_world[1, 1]),
+                    bottom_z=-np.nan,
+                    top_z=np.nan,
+                    type=wdo_type,
+                )
+            )
+    return room_vertices_local_2d, wdos
 
 
 def merge_wdos_straddling_img_border(wdo_instances: List[MHNetDWO]) -> List[MHNetDWO]:

@@ -156,11 +156,14 @@ class HarDNetFeatures(nn.Module):
 
 
 class ConvCompressH(nn.Module):
-    """Height-halving conv: 3x3 stride (2, 1) + batch norm + ReLU."""
+    """Height-halving conv: 3x3 stride (2, 1) + batch norm + ReLU.
 
-    def __init__(self, cin: int, cout: int) -> None:
+    HorizonNet's block, which HoHoNet inherited: HorizonNet's conv carries a
+    bias (`bias=True`, models/horizonnet.py), HoHoNet's none."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = False) -> None:
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 3, (2, 1), 1, bias=False)
+        self.conv = nn.Conv2d(cin, cout, 3, (2, 1), 1, bias=bias)
         self.norm = nn.BatchNorm2d(cout, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -170,11 +173,11 @@ class ConvCompressH(nn.Module):
 class GlobalHeightConv(nn.Module):
     """Four ConvCompressH blocks: height /16, channels in -> in/2 -> in/2 -> in/4 -> out."""
 
-    def __init__(self, in_ch: int, out_ch: int) -> None:
+    def __init__(self, in_ch: int, out_ch: int, bias: bool = False) -> None:
         super().__init__()
         prev = in_ch
         for j, w in enumerate([in_ch // 2, in_ch // 2, in_ch // 4, out_ch]):
-            self.add_module(f"layer_{j}", ConvCompressH(prev, w))
+            self.add_module(f"layer_{j}", ConvCompressH(prev, w, bias))
             prev = w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -201,7 +204,7 @@ def _interp_width_linear(x: torch.Tensor, out_w: int) -> torch.Tensor:
     return xl + (xh - xl) * frac[:, None]
 
 
-def _h_after_compression(h: int) -> int:
+def h_after_compression(h: int) -> int:
     """Height after GlobalHeightConv's four ceil-halvings."""
     for _ in range(4):
         h = (h + 1) // 2
@@ -218,7 +221,7 @@ class EfficientHeightCompression(nn.Module):
         total = 0
         for i, c in enumerate(feat_chs):
             self.add_module(f"ghc_{i}", GlobalHeightConv(c, c // HC_DOWN))
-            total += (c // HC_DOWN) * _h_after_compression(input_hw[0] // FEATURE_STRIDES[i])
+            total += (c // HC_DOWN) * h_after_compression(input_hw[0] // FEATURE_STRIDES[i])
         self.proj = nn.Conv1d(total, EMB_DIM, 1, bias=False)
         self.proj_norm = nn.BatchNorm1d(EMB_DIM, eps=1e-5)
 

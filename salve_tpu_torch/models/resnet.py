@@ -14,7 +14,7 @@ of more than one rank, over the global batch (`global_batch_statistics`).
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional
 
 import torch
 from torch import nn
@@ -234,3 +234,13 @@ class ResNetFeatures(ResNetTrunk):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.feature_map(self.conv1(x))
+
+    def stages(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """(B, 3, H, W) -> the outputs of layer1 to layer4, at strides 4, 8,
+        16 and 32 (HorizonNet's encoder taps, models/horizonnet.py)."""
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        out = []
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = layer(x)
+            out.append(x)
+        return out

@@ -58,11 +58,24 @@ floor's depth is computed on the card between the upload and the banks
 CUDA graph as the verifier's is), in the cache's millimetres,
 and nothing of it is kept after the call.
 
+A layout verifier's floor comes with its layouts, or with a HorizonNet
+layout model (models/horizonnet.py) and each pano's W/D/O spans: then each
+pano's floor boundary is computed on the card after the upload
+(`floor_boundary_bank`: float32, `HORIZON_CHUNK` panos a forward, each
+forward replayed as one CUDA graph), its copy to the host is queued behind
+it, and while the card renders the banks the host turns each boundary and
+its spans into the pano's room and W/D/Os (`boundary_layouts`, MHNet's
+parser's step: dataset/mhnet_prediction.py:layout_from_floor_boundary).
+From there the floor runs as one handed its layouts.
+
 Spans (utils/profiler.py; recorded only under a profiler): `floor` for the
 call (its id the running count of floors scored) with `place` (the
 models' placement), `upload`, `depth` (only where the floor
-came without depth), `banks`, `layout` (a layout verifier's floor: pano
-2's layout bank) and one `batch` a batch inside it; in a batch `prepare`
+came without depth), `horizon` (only where a layout model computes the
+boundaries: the forwards and the queued copy), `banks`, `boundary` (with
+`horizon`: the wait for the copy, then the rooms and W/D/Os), `layout` (a
+layout verifier's floor: pano 2's layout bank) and one `batch` a batch
+inside it; in a batch `prepare`
 (the padded chunk and its index and pose tensors), `layout` (a layout
 verifier's: pano 1's rasters of the batch's rows), `score_batch`'s `warp`,
 `preprocess` and `verifier`, `fetch` (where the host waits for the card)
@@ -72,12 +85,16 @@ upload, RGB alone where the depth is computed, each batch's tensors and
 the layouts' vertices, segments and colours),
 `layout/rasters`, `layout/vertices` and `layout/wdos` (rasters drawn, and
 the real room vertices and W/D/Os in them),
-`depth/panos` (panos whose depth the call computed), `rows` and
-`padded_rows` (a batch's rows, of them padding), `d2h_bytes`; in
+`depth/panos` (panos whose depth the call computed), `horizon/panos`
+(panos whose boundary the call computed), `boundary/vertices` (the room
+vertices RDP kept, over the floor's panos), `rows` and
+`padded_rows` (a batch's rows, of them padding), `d2h_bytes` (each batch's
+answers, and the floor's boundaries where computed); in
 `verifier`, one of `verifier/graph_replays` (a batch the graph scored, the
 batch that captured it among them) or `verifier/eager` a batch, and
 `verifier/graph_captures`; in `depth`, the same three `depth/` counters a
-forward; in `banks`, the same three `banks/` counters a floor; in `place`,
+forward; in `horizon`, the same three `horizon/` counters a forward; in
+`banks`, the same three `banks/` counters a floor; in `place`,
 one of `models/resident` (found placed) or `models/placed` (moved or
 switched to eval) a model.
 """
@@ -87,14 +104,17 @@ from __future__ import annotations
 import functools
 import itertools
 import weakref
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from salve_tpu_torch.device import DeviceLike, resolve_device
 from salve_tpu_torch.depth.cache import meters_to_mm
+from salve_tpu_torch.dataset.mhnet_prediction import layout_from_floor_boundary
+from salve_tpu_torch.geometry.sim2 import Sim2
 from salve_tpu_torch.models.hohonet import resize_linear_batch
+from salve_tpu_torch.models.horizonnet import floor_boundary_rows
 from salve_tpu_torch.ops.backproject import CEILING_Z_RANGE, FLOOR_Z_RANGE
 from salve_tpu_torch.ops.warp import warp_banks_auto
 from salve_tpu_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
@@ -341,6 +361,64 @@ def depth_mm_bank(model: torch.nn.Module, rgbs: torch.Tensor, chunk: int = DEPTH
     return torch.cat(out).contiguous()
 
 
+def _horizon(model: torch.nn.Module, x: torch.Tensor) -> Tuple[torch.Tensor]:
+    """(B, H, W, 3) RGB -> (B, W) floor boundary rows. The RGB enters as it
+    lies, channels last, and the convolutions keep that layout."""
+    bon, _ = model(x.permute(0, 3, 1, 2))
+    return (floor_boundary_rows(bon, x.shape[1]),)
+
+
+# Panos a forward in `floor_boundary_bank`: six, a whole floor of the
+# benchmark's 3-6 panos. On the H100 (cuDNN 9.22, float32, TF32 off, each
+# forward a CUDA graph) a floor's boundaries took 9.04 ms a pano (floors of
+# 3/4/5/6 panos 31.6/36.2/46.5/48.3 ms) at six panos a forward with the RGB
+# channels last, against 10.0-16.2 at one to four; the LSTM's 512 dependent
+# steps cost nearly as much for six panos as for one. With the RGB made
+# contiguous (NCHW) two panos a forward took 9.74 ms a pano, one 12.19, and
+# from three cuDNN's algorithm choice took 15.5-18.7 ms a pano and 9.6-10.5
+# GB of workspace. Peak memory at six channels last: 2.4 GB.
+HORIZON_CHUNK = 6
+
+
+@torch.no_grad()
+def floor_boundary_bank(model: torch.nn.Module, rgbs: torch.Tensor) -> torch.Tensor:
+    """Each pano's floor boundary computed where its RGB lies: (P, H, W, 3)
+    float RGB in [0, 1] on the HorizonNet `model`'s device -> (P, w) float32
+    rows of the model's (h, w) input (models/horizonnet.py:
+    floor_boundary_rows). Forwards of HORIZON_CHUNK panos, each replayed as one
+    CUDA graph where `place` put the model on the card (`run_graphed`,
+    `horizon/` counters); at a model `input_hw` other than (H, W) each chunk
+    is resized to it by `resize_linear_batch`. The model runs as it is held:
+    float32 on the card under the port's numerics policy (device.py: TF32
+    off), its LSTM as cuDNN's RNN."""
+    out = []
+    for start in range(0, rgbs.shape[0], HORIZON_CHUNK):
+        x = rgbs[start : start + HORIZON_CHUNK]
+        if tuple(x.shape[1:3]) != model.input_hw:
+            x = resize_linear_batch(x, model.input_hw)
+        out.append(run_graphed(_horizon, model, x, "horizon")[0])
+    return torch.cat(out)
+
+
+# The W/D/O types in the order a pano's layout paints them (PanoData.all_wdos).
+PAINT_ORDER = ("doors", "windows", "openings")
+
+
+def boundary_layouts(boundary: np.ndarray, wdo_spans: Sequence[Mapping[str, Sequence[Tuple[float, float]]]]
+                     ) -> List[Tuple[np.ndarray, list]]:
+    """Each pano's (room vertices, W/D/Os in paint order) from its row of
+    `boundary` ((P, w) floor boundary rows of images w wide) and its W/D/O
+    spans (by type, "doors", "windows" and "openings": seam-merged (s, e)
+    fractions of the width, as MHNet's parser holds them), in the pano's own
+    frame: dataset/mhnet_prediction.py:layout_from_floor_boundary, as MHNet's
+    parser makes a pano's layout from its prediction."""
+    out = []
+    for row, spans in zip(boundary, wdo_spans):
+        room, wdos = layout_from_floor_boundary(row, spans, boundary.shape[1], Sim2.identity())
+        out.append((room, [w for t in PAINT_ORDER for w in wdos[t]]))
+    return out
+
+
 # device -> (the one memory pool of its banks' graphs, {(the banks' shapes and
 # dtypes, the render config, the mode): the graph of `_banks`}), a graph a
 # pano count kept for the process. The graphs replay one at a time on one
@@ -485,6 +563,8 @@ def score_floor_hypotheses(
     mesh: Optional[Mesh] = None,
     depth_model: Optional[torch.nn.Module] = None,
     layouts: Optional[Sequence[Tuple[np.ndarray, list]]] = None,
+    layout_model: Optional[torch.nn.Module] = None,
+    wdo_spans: Optional[Sequence[Mapping[str, Sequence[Tuple[float, float]]]]] = None,
 ) -> List[ScoredHypothesis]:
     """Score every (i1, i2, AlignmentHypothesis) of a floor.
 
@@ -513,18 +593,33 @@ def score_floor_hypotheses(
         layouts: a layout verifier's floor layouts, one (room vertices
             (V, 2), W/D/Os) a bank row in the pano's frame, as
             rendering/layout.py:rasterize_layout_batch takes them (the W/D/Os
-            in paint order, `PanoData.all_wdos`); required with the layout
-            modality, refused without it. On a mesh each rank draws its rows.
+            in paint order, `PanoData.all_wdos`); a layout verifier takes
+            these or a `layout_model`, an RGB verifier neither. On a mesh
+            each rank draws its rows.
+        layout_model: a HorizonNet (models/horizonnet.py) that computes each
+            pano's floor boundary from `rgbs` on `device`, for a layout
+            verifier given no `layouts`; it is moved there and put in eval
+            mode. On a mesh every rank computes the boundaries.
+        wdo_spans: with a `layout_model`, one W/D/O span set a bank row: by
+            type ("doors", "windows", "openings") the (s, e) fractions of
+            the width, seam-merged as MHNetPanoStructurePrediction holds
+            them.
     """
     dev = resolve_device(device) if mesh is None else mesh.device
     if mesh is not None and batch_size % mesh.size != 0:
         raise ValueError(f"batch_size {batch_size} not divisible by mesh size {mesh.size}")
     if set(cfg.modalities) not in (RGB_MODALITIES, LAYOUT_MODALITIES):
         raise ValueError("Fused inference supports the ceiling+floor RGB verifier, with or without the layout.")
-    if ("layout" in cfg.modalities) != (layouts is not None):
-        raise ValueError("A layout verifier takes the floor's layouts, one a bank row; an RGB verifier takes none.")
+    if ("layout" in cfg.modalities) != (layouts is not None or layout_model is not None) or (
+            layouts is not None and layout_model is not None):
+        raise ValueError("A layout verifier takes the floor's layouts, one a bank row, or a layout_model; an RGB "
+                         "verifier takes neither.")
+    if (layout_model is None) != (wdo_spans is None):
+        raise ValueError("A layout_model comes with the floor's W/D/O spans, one set a bank row, and they without it.")
     if layouts is not None and len(layouts) != rgbs.shape[0]:
         raise ValueError(f"{len(layouts)} layouts for a bank of {rgbs.shape[0]} panos")
+    if wdo_spans is not None and len(wdo_spans) != rgbs.shape[0]:
+        raise ValueError(f"{len(wdo_spans)} W/D/O span sets for a bank of {rgbs.shape[0]} panos")
     if (depths is None) == (depth_model is None):
         raise ValueError("Give the floor's depths or a depth_model, not both or neither.")
     if not hypotheses:
@@ -539,6 +634,8 @@ def score_floor_hypotheses(
             model = place(model, dev)
             if depth_model is not None:
                 depth_model = place(depth_model, dev)
+            if layout_model is not None:
+                layout_model = place(layout_model, dev)
 
         with profiler.annotate("upload"):
             # uint16 mm -> float32 is exact; float32 banks index on every device.
@@ -552,8 +649,25 @@ def score_floor_hypotheses(
             with profiler.annotate("depth", panos=n_panos):
                 profiler.count("depth/panos", n_panos)
                 depths_d = depth_mm_bank(depth_model, rgbs_d, DEPTH_CHUNK)
+        if layout_model is not None:
+            with profiler.annotate("horizon", panos=n_panos):
+                profiler.count("horizon/panos", n_panos)
+                # The copy is queued behind the forwards and waited for after
+                # the banks are queued: the host's rooms overlap the banks.
+                boundary = floor_boundary_bank(layout_model, rgbs_d).to("cpu", non_blocking=True)
+                copied = None
+                if dev.type == "cuda":
+                    copied = torch.cuda.Event()
+                    copied.record()
         with profiler.annotate("banks"):
             depths_d, rgbs_d, bank_ceil, bank_floor = build_banks(depths_d, rgbs_d, render_cfg, use_warp_renders)
+        if layout_model is not None:
+            with profiler.annotate("boundary"):
+                if copied is not None:
+                    copied.synchronize()
+                profiler.count("d2h_bytes", boundary.nbytes)
+                layouts = boundary_layouts(boundary.numpy(), wdo_spans)
+                profiler.count("boundary/vertices", sum(len(room) for room, _ in layouts))
         bank_layout = None
         if layouts is not None:
             with profiler.annotate("layout"):

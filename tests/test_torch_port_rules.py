@@ -254,8 +254,8 @@ NEW_CLI_CASES = [
 
 # Flags the port's CLIs have and salve_tpu's do not, with their defaults:
 # the fused scorer computes a floor's missing depth on the card, and scores
-# a layout verifier from MHNet's layouts.
-PORT_ONLY_FLAGS = {"test_fused": {"hohonet_ckpt": None, "hohonet_input_hw": "512,1024",
+# a layout verifier from MHNet's layouts or from HorizonNet's boundaries.
+PORT_ONLY_FLAGS = {"test_fused": {"hohonet_ckpt": None, "hohonet_input_hw": "512,1024", "horizonnet_ckpt": None,
                                   "modalities": ["ceiling_rgb_texture", "floor_rgb_texture"],
                                   "mhnet_predictions_data_root": None}}
 
